@@ -1,0 +1,134 @@
+"""Host profile blocks, fragment indexing and specials for the torch port.
+
+The counterpart of deciphon_tpu/ops/viterbi_jax.py: the numpy block
+constructor (``build_profile_block`` :66), the end-fragment index table
+(``end_fragment_indices`` :119) and the length-dependent special
+transitions (``_specials`` :136), re-implemented here because the JAX
+module imports jax at load time.
+
+The recurrence itself lives once, in ops/viterbi_cuda.py (``scores_plain``
+and the CUDA kernel behind ``scores``); ``viterbi_scores`` below keeps the
+JAX entry point's signature and [S, B] output layout on top of it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from deciphon_tpu.models.frame import FRAG_SENTINEL
+from deciphon_tpu.models.profile import ProteinProfile
+
+NEG = -1e30  # effective -inf that stays NaN-free through the D-chain sums
+
+
+class ProfileBlock(NamedTuple):
+    """Host (numpy) batch of profiles padded to a common core size Kpad.
+
+    Same fields and layout as viterbi_jax.ProfileBlock; padding nodes
+    carry NEG transitions and emissions so they never score."""
+
+    fm: np.ndarray  # [B, Kpad, 1365] match fragment tables
+    fi: np.ndarray  # [B, 1365] insert fragment table
+    fn: np.ndarray  # [B, 1365] null/special fragment table (R,N,J,C)
+    entry: np.ndarray  # [B, Kpad]
+    mm_in: np.ndarray
+    im_in: np.ndarray
+    dm_in: np.ndarray
+    md_in: np.ndarray
+    dd_in: np.ndarray
+    mi: np.ndarray
+    ii: np.ndarray
+    core_size: np.ndarray  # [B] int32
+
+
+TRANS_NAMES = ("entry", "mm_in", "im_in", "dm_in", "md_in", "dd_in", "mi", "ii")
+
+
+def _clamp(a, dtype=np.float32) -> np.ndarray:
+    return np.maximum(np.asarray(a, dtype=np.float64), NEG).astype(dtype)
+
+
+def build_profile_block(
+    profiles: list[ProteinProfile], kpad: int | None = None
+) -> ProfileBlock:
+    """Stack + pad profiles into a host block of base-4 fragment tables
+    (the f64 host tables of ProteinProfile.fragment_tables, clamped to NEG
+    and cast to f32)."""
+    B = len(profiles)
+    K = max(p.core_size for p in profiles)
+    if kpad is not None:
+        assert kpad >= K
+        K = kpad
+    ntab = FRAG_SENTINEL + 1
+    fm = np.full((B, K, ntab), NEG, np.float32)
+    fi = np.empty((B, ntab), np.float32)
+    fn = np.empty((B, ntab), np.float32)
+    arrs = {n: np.full((B, K), NEG, np.float32) for n in TRANS_NAMES}
+    core = np.empty(B, np.int32)
+    for b, p in enumerate(profiles):
+        fmat, fins, fnull = p.fragment_tables()
+        fm[b, : p.core_size] = _clamp(fmat)
+        fi[b] = _clamp(fins)
+        fn[b] = _clamp(fnull)
+        for n in TRANS_NAMES:
+            arrs[n][b, : p.core_size] = _clamp(getattr(p, n))
+        core[b] = p.core_size
+    return ProfileBlock(fm=fm, fi=fi, fn=fn, core_size=core, **arrs)
+
+
+def end_fragment_indices(fidx: np.ndarray) -> np.ndarray:
+    """[Lp, 5] indices of base-4 fragments *ending* at position i.
+
+    eidx[i-1, l-1] = index of seq[i-l : i] (from the start-indexed table
+    of ops/emissions.fragment_indices), or the NEG sentinel row when the
+    fragment would start before position 0."""
+    Lp = fidx.shape[0]
+    out = np.full((Lp, 5), FRAG_SENTINEL, dtype=np.int32)
+    for l in range(1, 6):
+        out[l - 1 :, l - 1] = fidx[: Lp - l + 1, l - 1]
+    return out
+
+
+def specials(seq_len: torch.Tensor, multi_hits: bool, hmmer3_compat: bool):
+    """Length-dependent special transitions per read, f32 tensors [S].
+
+    Mirrors protein_profile_setup (reference src/model/protein_profile.c:
+    155-216) and viterbi_jax._specials.  EJ and EC do not depend on the
+    length and come back as floats.  Length-0 rows (batch padding) are
+    scored as length 1; they never reach the capture at i == seq_len."""
+    L = seq_len.to(torch.float32).clamp_min(1.0)
+    q = 0.5 if multi_hits else 0.0
+    log_q = float(np.log(0.5)) if multi_hits else NEG
+    denom = torch.log(L + (2.0 + q / (1.0 - q)))
+    lp = torch.log(L) - denom
+    l1p = float(np.log(np.float32(2.0 + q / (1.0 - q)))) - denom
+    lr = torch.log(L) - torch.log(L + 1.0)
+    nn = torch.zeros_like(lp) if hmmer3_compat else lp
+    return dict(
+        NN=nn, NB=l1p, EC=float(np.log(1.0 - q)), CC=nn, CT=l1p,
+        EJ=log_q, JJ=nn, JB=l1p, RR=lr,
+    )
+
+
+def viterbi_scores(
+    block: ProfileBlock,
+    eidx: np.ndarray,  # [S, Lp, 5] int32 end-fragment indices
+    seq_len: np.ndarray,  # [S] int32
+    multi_hits: bool = True,
+    hmmer3_compat: bool = False,
+):
+    """Score every (sequence, profile) pair: (alt [S, B], null [S, B]) f32
+    CPU tensors — the port of viterbi_jax.viterbi_scores (:293), run
+    through the plain recurrence.  The engine reaches the kernel through
+    ``viterbi_cuda.CudaBlock`` instead."""
+    from deciphon_tpu_torch.ops import viterbi_cuda as vc
+
+    return vc.scores(
+        vc.pack_numpy_block(block),
+        torch.as_tensor(np.asarray(eidx, np.int32)),
+        torch.as_tensor(np.asarray(seq_len, np.int32)),
+        multi_hits=multi_hits, hmmer3_compat=hmmer3_compat,
+    )
