@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
 """On-card smoke test of the deciphon_tpu_torch scan path (one NVIDIA GPU).
 
-    python3 chip_smoke.py    # needs one CUDA card; ~100 s on an H100
+    python3 chip_smoke.py    # needs one CUDA card; ~5 min on an H100
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit) and the kernel build
      (nvcc, sm_90a) from csrc/ in this checkout;
-  2. the Viterbi kernel against its plain torch version on the card, over
-     a menu of core sizes, read lengths and flags, every cell within
-     1e-4 + 1e-6 * |plain|;
+  2. both kernel instantiations (Viterbi = max, forward = logsumexp)
+     against their plain torch version on the card, over a menu of core
+     sizes, read lengths and flags on base-4 tables, and on base-5
+     ("N") and base-6 ("N", "R") tables with N at read positions 1-5
+     and R mid-read; every block holds a profile with two dead DD
+     links.  Tolerance: 1e-4 + 1e-6 * |plain| (max), 1e-3 + 1e-5 *
+     |plain| (logsumexp);
   3. the main path at a Pfam-shaped size: press a synthetic 1024-profile
-     .hmm and scan 256 reads with the port's CLI (subprocesses), then the
-     same engine in process: planted reads must hit their profiles, the
-     kernel must have been launched, every pass-1 cell must equal the
-     plain version, and no jax may be loaded.  Warm scan seconds, GCUPS
-     and kernel-vs-plain times are timed with CUDA events.
+     .hmm, then scan one mixed read set (256 ACGT reads, 24 reads with N,
+     8 with N and R) under Viterbi and under --forward, each with the
+     port's CLI (subprocess) and the same engine in process: planted
+     reads (also those holding N, and N and R) must hit their profiles,
+     the semiring's kernel must have been launched once per block and
+     read class, every pass-1 cell of every class must equal the plain
+     version, and no jax may be loaded.  Kernel-vs-plain times per class,
+     warm scan seconds and GCUPS are timed with CUDA events.
 The last two lines are the card line and a JSON {"ok": true, ...}; the
 line before them is the JSON kernel table.
 """
@@ -31,16 +38,28 @@ from dataclasses import replace
 
 import numpy as np
 
-TOL_ABS, TOL_REL = 1e-4, 1e-6  # both sides f32, same additions; only
-# the order of the max-reductions over K and of the scan differs
+# (absolute, relative) tolerance of kernel vs plain, per semiring.  Max:
+# both sides add the same f32 values, only the order of the maxima
+# differs.  Logsumexp: the kernel joins with expf/log1pf pairwise where
+# the plain version takes torch.logsumexp / logcumsumexp, so each join
+# may round differently, over up to 600 positions.
+TOL = {"max": (1e-4, 1e-6), "logsumexp": (1e-3, 1e-5)}
 KERNEL_SOURCE = "deciphon_tpu_torch/csrc/viterbi.cu"
 KERNEL_REPLACES = "deciphon_tpu/ops/viterbi_pallas.py:178"
+KERNEL_NAME = {"max": "viterbi_max", "logsumexp": "viterbi_lse"}
+ALGO = {"max": "viterbi", "logsumexp": "forward"}
 MENU_K = (8, 129, 768, 896, 1536, 2048, 4096)
 MENU_LENS = (0, 1, 2, 4, 5, 27, 254, 255, 256, 600)  # 0: a padding row
 FLAGS = ((True, False), (False, False), (True, True), (False, True))
+# extended tables: base 5 and base 6 over a shorter K menu, two flag pairs
+EXT_CODES = (("N",), ("N", "R"))
+EXT_K = (8, 129, 896, 2048, 4096)
+EXT_FLAGS = ((True, False), (False, True))
 NPROF = 1024
-NREADS = 256
-NPLANTED = 8
+NREADS = 256  # ACGT reads
+NPLANTED = 8  # of them consensus reads of known profiles
+N_READS, N_PLANTED = 24, 8  # reads with N; consensus reads with one N
+NR_READS, NR_PLANTED = 8, 2  # reads with N and R; planted ones
 
 
 def card_line() -> str:
@@ -51,68 +70,105 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def max_excess(got, want) -> tuple[float, float]:
+def max_excess(got, want, semiring: str) -> tuple[float, float]:
     """(max |got - want|, max of |got - want| - tolerance)."""
+    tol_abs, tol_rel = TOL[semiring]
     d = (got - want).abs()
-    return float(d.max()), float((d - (TOL_ABS + TOL_REL * want.abs())).max())
+    return float(d.max()), float((d - (tol_abs + tol_rel * want.abs())).max())
 
 
-def eidx_of(reads, pad_to: int):
-    from deciphon_tpu.models.alphabet import DNA
+def encode(read: str, codes: tuple) -> np.ndarray:
+    """ACGT -> 0..3, codes[j] -> 4+j (alphabet.encode_extended's symbols
+    for a read class of ``codes``)."""
+    return np.array(
+        ["ACGT".index(c) if c in "ACGT" else 4 + codes.index(c) for c in read],
+        np.int8,
+    )
+
+
+def eidx_of(reads, pad_to: int, codes: tuple = ()):
     from deciphon_tpu.ops.emissions import fragment_indices
     from deciphon_tpu_torch.ops.viterbi_torch import end_fragment_indices
 
+    base = 4 + len(codes)
     return np.stack([
-        end_fragment_indices(fragment_indices(DNA.encode(r), pad_to=pad_to))
+        end_fragment_indices(
+            fragment_indices(encode(r, codes), pad_to=pad_to, base=base),
+            base,
+        )
         for r in reads
     ])
 
 
-def phase_kernel_menu(dev) -> float:
+def menu_reads(codes: tuple) -> list[str]:
+    """MENU_LENS random reads; with codes, codes[0] at one of positions
+    1-5 of every read and codes[-1] in the middle of reads of >= 3 nt."""
+    rng = np.random.default_rng(7)
+    reads = [list(rng.choice(list("ACGT"), n)) for n in MENU_LENS]
+    if codes:
+        for j, r in enumerate(reads):
+            if r:
+                r[j % min(5, len(r))] = codes[0]
+            if len(r) >= 3:
+                r[len(r) // 2] = codes[-1]
+    return ["".join(r) for r in reads]
+
+
+def phase_kernel_menu(dev) -> dict:
+    """Worst |kernel - plain| per semiring over the menu."""
     import torch
 
     from deciphon_tpu.models.profile import sample_profile
     from deciphon_tpu_torch.ops import viterbi_cuda as vc
     from deciphon_tpu_torch.ops.viterbi_torch import NEG
 
-    rng = np.random.default_rng(7)
-    reads = ["".join(rng.choice(list("ACGT"), n)) for n in MENU_LENS]
-    eidx = torch.from_numpy(eidx_of(reads, max(MENU_LENS))).to(dev)
-    slen = torch.tensor(MENU_LENS, dtype=torch.int32, device=dev)
-    worst = -1.0
-    for K in MENU_K:
-        # ragged block: cores below the padded width leave padding nodes;
-        # the last profile repeats the widest with two dead DD links
-        # inside its core (the -1e4 clamp of the telescoped D-chain)
-        cores = sorted({K, max(2, K - 5), max(2, K // 2), max(2, K // 3)})
-        profiles = [
-            sample_profile(100 * K + j, k) for j, k in enumerate(cores)
-        ]
-        dd = profiles[-1].dd_in.copy()
-        dd[[K // 3, 2 * K // 3]] = -np.inf
-        profiles.append(replace(profiles[-1], dd_in=dd))
-        blk = vc.CudaBlock.from_profiles(profiles, device=dev)
-        for mh, h3 in FLAGS:
-            alt, null = vc.scores(blk, eidx, slen, mh, h3)
-            palt, pnull = vc.scores_plain(blk, eidx, slen, mh, h3)
-            torch.cuda.synchronize()
-            da, ea = max_excess(alt, palt)
-            dn, en = max_excess(null, pnull)
-            finite = bool(torch.isfinite(alt[1:]).all() and
-                          torch.isfinite(null[1:]).all())
-            pad_row = bool((alt[0] == NEG).all() and (null[0] == NEG).all())
-            print(f"menu K={K} kpad={blk.kpad} cores={cores} "
-                  f"multi_hits={mh} hmmer3_compat={h3}: "
-                  f"max|d| alt {da:.3g} null {dn:.3g}")
-            # per-length detail: the deltas of each read row
-            per = (alt - palt).abs().amax(1).tolist()
-            print("  per read length: " + " ".join(
-                f"{n}:{d:.2g}" for n, d in zip(MENU_LENS, per)))
-            if not (finite and pad_row) or max(ea, en) > 0:
-                raise SystemExit(f"kernel disagrees with plain at K={K}")
-            worst = max(worst, da, dn)
-    print(f"menu: all {len(MENU_K) * len(FLAGS)} cells within tolerance, "
-          f"max|d| {worst:.3g}")
+    worst = dict.fromkeys(TOL, 0.0)
+    ncells = 0
+    plan = [((), MENU_K, FLAGS)] + [(c, EXT_K, EXT_FLAGS) for c in EXT_CODES]
+    for codes, ks, flags in plan:
+        reads = menu_reads(codes)
+        eidx = torch.from_numpy(eidx_of(reads, max(MENU_LENS), codes)).to(dev)
+        slen = torch.tensor(MENU_LENS, dtype=torch.int32, device=dev)
+        for K in ks:
+            # ragged block: cores below the padded width leave padding
+            # nodes; the last profile repeats the widest with two dead DD
+            # links inside its core (the -1e4 clamp of the D-chain)
+            cores = sorted({K, max(2, K - 5), max(2, K // 2), max(2, K // 3)})
+            profiles = [
+                sample_profile(100 * K + j, k) for j, k in enumerate(cores)
+            ]
+            dd = profiles[-1].dd_in.copy()
+            dd[[K // 3, 2 * K // 3]] = -np.inf
+            profiles.append(replace(profiles[-1], dd_in=dd))
+            blk = vc.CudaBlock.from_profiles(profiles, device=dev,
+                                             codes=codes)
+            for semiring in TOL:
+                for mh, h3 in flags:
+                    alt, null = vc.scores(blk, eidx, slen, mh, h3, semiring)
+                    palt, pnull = vc.scores_plain(blk, eidx, slen, mh, h3,
+                                                  semiring)
+                    torch.cuda.synchronize()
+                    da, ea = max_excess(alt, palt, semiring)
+                    dn, en = max_excess(null, pnull, semiring)
+                    finite = bool(torch.isfinite(alt[1:]).all() and
+                                  torch.isfinite(null[1:]).all())
+                    pad_row = bool((alt[0] == NEG).all() and
+                                   (null[0] == NEG).all())
+                    print(f"menu {codes or 'ACGT'} ntab={blk.fm.shape[1]} "
+                          f"K={K} kpad={blk.kpad} {semiring} "
+                          f"multi_hits={mh} hmmer3_compat={h3}: "
+                          f"max|d| alt {da:.3g} null {dn:.3g}")
+                    if not (finite and pad_row) or max(ea, en) > 0:
+                        per = (alt - palt).abs().amax(1).tolist()
+                        print("  per read length: " + " ".join(
+                            f"{n}:{d:.2g}" for n, d in zip(MENU_LENS, per)))
+                        raise SystemExit(f"{semiring} kernel disagrees with "
+                                         f"plain at K={K}, codes={codes}")
+                    worst[semiring] = max(worst[semiring], da, dn)
+                    ncells += 1
+            del blk
+    print(f"menu: all {ncells} cells within tolerance, max|d| "
+          + ", ".join(f"{s} {w:.3g}" for s, w in worst.items()))
     return worst
 
 
@@ -165,7 +221,51 @@ def timed_ms(fn, reps: int = 1) -> float:
     return best
 
 
+def mixed_reads(rng, db):
+    """(reads, planted {seq_id: profile}): the 256 ACGT reads of 150-500
+    nt with 8 consensus reads planted, then 24 reads with N (8 of them
+    consensus reads of other profiles with one N inside) and 8 with N and
+    R (2 of them consensus reads with one N and one R on an A or G)."""
+    lens = rng.integers(150, 500, NREADS)
+    reads = ["".join(rng.choice(list("ACGT"), int(n))) for n in lens]
+    fit = np.flatnonzero((db.core_sizes >= 50) & (db.core_sizes <= 166))
+    targets = [int(t) for t in rng.choice(fit, NPLANTED, replace=False)]
+    slots = rng.choice(NREADS, NPLANTED, replace=False)
+    for t, slot in zip(targets, slots):
+        reads[slot] = consensus_dna(db.profile(t))
+    planted = {int(slot) + 1: t for t, slot in zip(targets, slots)}
+
+    others = rng.choice(np.setdiff1d(fit, targets), N_PLANTED + NR_PLANTED,
+                        replace=False)
+    for j in range(N_READS + NR_READS):
+        nr = j >= N_READS
+        if j < N_PLANTED or N_READS <= j < N_READS + NR_PLANTED:
+            t = int(others[j if j < N_PLANTED else N_PLANTED + j - N_READS])
+            r = list(consensus_dna(db.profile(t)))
+            planted[len(reads) + 1] = t
+            marks = 1
+        else:
+            r = list(rng.choice(list("ACGT"), int(rng.integers(150, 500))))
+            marks = int(rng.integers(1, 4))
+        for p in rng.choice(np.arange(3, len(r) - 3), marks, replace=False):
+            r[p] = "N"
+        if nr:
+            ag = [p for p in range(len(r) // 3, len(r)) if r[p] in "AG"]
+            r[ag[len(ag) // 2]] = "R"
+        reads.append("".join(r))
+    return reads, planted
+
+
+def check_planted(hit_pairs: set, planted: dict, what: str) -> None:
+    missed = [(s, t) for s, t in planted.items() if (s, t) not in hit_pairs]
+    if missed:
+        raise SystemExit(f"{what}: planted (read, profile) {missed} missed")
+    print(f"{what}: all {len(planted)} planted reads hit")
+
+
 def phase_main_path(dev, workdir: str) -> dict:
+    """Per semiring: (launches, max_abs_err, ms, plain_ms) of the main
+    path."""
     import torch
 
     from deciphon_tpu.db.format import TensorDB
@@ -190,102 +290,123 @@ def phase_main_path(dev, workdir: str) -> dict:
     db = TensorDB.load(dtp)
     assert db.nprofiles == NPROF
 
-    # 256 reads of 150-500 nt; 8 are consensus reads of known profiles
-    lens = rng.integers(150, 500, NREADS)
-    reads = ["".join(rng.choice(list("ACGT"), int(n))) for n in lens]
-    fit = np.flatnonzero((db.core_sizes >= 50) & (db.core_sizes <= 166))
-    targets = [int(t) for t in rng.choice(fit, NPLANTED, replace=False)]
-    slots = rng.choice(NREADS, NPLANTED, replace=False)
-    for t, slot in zip(targets, slots):
-        reads[slot] = consensus_dna(db.profile(t))
-    planted = {int(slot) + 1: t for t, slot in zip(targets, slots)}
+    reads, planted = mixed_reads(rng, db)
     fasta = os.path.join(workdir, "reads.fa")
     with open(fasta, "w") as fp:
         fp.writelines(f">r{i + 1}\n{r}\n" for i, r in enumerate(reads))
-    tsv = os.path.join(workdir, "prods.tsv")
-    cli("scan", dtp, fasta, "-o", tsv, "--device", dev.type)
-    rows = [ln.split("\t") for ln in open(tsv).read().splitlines()[1:]]
-    got = {(int(r[1]), r[2]) for r in rows}
-    for sid, t in planted.items():
-        if (sid, db.profile(t).accession) not in got:
-            raise SystemExit(f"cli scan: planted read {sid} missed "
-                             f"profile {t}")
-    print(f"cli scan: {len(rows)} rows, all {NPLANTED} planted reads hit")
-
-    # the same path in process: launches, pass-1 cells, timings
     seqs = [SeqRecord(i + 1, f"r{i + 1}", r) for i, r in enumerate(reads)]
-    engine = ScanEngine(db, ScanParams(), device=dev)
-    t0 = time.perf_counter()
-    engine.prepare()
-    torch.cuda.synchronize()
-    print(f"engine: {len(engine.blocks)} blocks, tables built in "
-          f"{time.perf_counter() - t0:.2f} s")
-    vc.LAUNCHES = 0
-    hits = engine.scan(seqs)
-    launches = vc.LAUNCHES
-    if launches != len(engine.blocks):
-        raise SystemExit(f"main path launched the kernel {launches} times "
-                         f"for {len(engine.blocks)} blocks")
-    hit_set = {(h.seq_id, h.profile_idx) for h in hits}
-    missed = [s for s, t in planted.items() if (s, t) not in hit_set]
-    if missed:
-        raise SystemExit(f"engine scan: planted reads {missed} missed")
-    for h in hits:
-        if not (np.isfinite(h.alt_loglik) and h.match):
-            raise SystemExit(f"engine scan: malformed hit {h}")
-    alt, null = engine.last_scores
-    if alt.shape != (NREADS, NPROF) or not np.isfinite(alt).all():
-        raise SystemExit("engine scan: pass-1 scores not finite [256, 1024]")
-    print(f"engine scan: {len(hits)} hits, kernel launches {launches}")
+    nodes = int(db.core_sizes.sum())
+    cells = 3 * sum(map(len, reads)) * nodes
+    out = {}
+    for semiring in TOL:
+        algo = ALGO[semiring]
+        print(f"--- main path, {algo} ({semiring}) ---")
+        tsv = os.path.join(workdir, f"prods_{algo}.tsv")
+        cli("scan", dtp, fasta, "-o", tsv, "--device", dev.type,
+            *(["--forward"] if algo == "forward" else []))
+        rows = [ln.split("\t") for ln in open(tsv).read().splitlines()[1:]]
+        acc_of = {db.profile(t).accession: t for t in planted.values()}
+        check_planted({(int(r[1]), acc_of.get(r[2])) for r in rows}, planted,
+                      f"cli scan ({len(rows)} rows)")
 
-    # every pass-1 cell of that run against the plain version
-    order, eidx, slen = engine.batch(engine.encode(seqs))
-    plains = []
-
-    def run_plain():
-        plains.clear()
-        for blk in engine.blocks:
-            plains.append(vc.scores_plain(engine.packed(blk), eidx, slen))
-
-    plain_ms = timed_ms(run_plain)
-    worst = 0.0
-    for blk, (pa, pn) in zip(engine.blocks, plains):
-        for got_, want in ((alt, pa), (null, pn)):
-            run = torch.from_numpy(got_[np.ix_(order, blk.chunk)]).to(dev)
-            d, excess = max_excess(run, want)
-            if excess > 0:
-                raise SystemExit(f"pass-1 cell off plain at kpad {blk.kpad}:"
-                                 f" max|d| {d}")
-            worst = max(worst, d)
-    print(f"pass 1: all {alt.size} cells x (alt, null) equal plain within "
-          f"tolerance, max|d| {worst:.3g}")
-
-    def run_kernel():
-        for blk in engine.blocks:
-            vc.scores(engine.packed(blk), eidx, slen)
-
-    kernel_ms = timed_ms(run_kernel, reps=3)
-    print(f"pass-1 kernel {kernel_ms:.3f} ms vs plain {plain_ms:.3f} ms "
-          f"over {len(engine.blocks)} blocks")
-
-    scan_s = []
-    for _ in range(3):
+        # the same path in process: launches, pass-1 cells, timings
+        engine = ScanEngine(db, ScanParams(algo=algo), device=dev)
         t0 = time.perf_counter()
-        ms = timed_ms(lambda: engine.scan(seqs))
-        scan_s.append((ms / 1e3, time.perf_counter() - t0))
-    warm = min(s for s, _ in scan_s)
-    tm = engine.last_timings
-    kpad_of = {int(g): b.kpad for b in engine.blocks for g in b.chunk}
-    print(f"warm scan phases (host clock, last run): pass 1 "
-          f"{tm['pass1']:.4f} s, gate {tm['gate']:.4f} s, pass 2 "
-          f"{tm['pass2']:.4f} s for {tm['survivors']} survivors in "
-          f"{len({kpad_of[h.profile_idx] for h in hits})} width groups")
-    cells = 3 * sum(map(len, reads)) * int(db.core_sizes.sum())
-    print(f"warm scan (min of 3, CUDA events): {warm:.4f} s "
-          f"(host clock {min(h for _, h in scan_s):.4f} s), "
-          f"{cells / warm / 1e9:.2f} GCUPS (3 x sum len x sum core)")
-    return dict(launches=launches, max_abs_err=worst, ms=kernel_ms,
-                plain_ms=plain_ms)
+        engine.prepare()
+        torch.cuda.synchronize()
+        print(f"engine: {len(engine.blocks)} blocks, base-4 tables built in "
+              f"{time.perf_counter() - t0:.2f} s")
+        encoded, classes = engine.encode(seqs)
+        for k in vc.LAUNCHES:
+            vc.LAUNCHES[k] = 0
+        hits = engine.scan(seqs)
+        launches = dict(vc.LAUNCHES)
+        want = len(engine.blocks) * len(classes)
+        other = sum(n for s, n in launches.items() if s != semiring)
+        if launches[semiring] != want or other:
+            raise SystemExit(f"main path launches {launches}: want "
+                             f"{want} {semiring} (blocks x classes)")
+        check_planted({(h.seq_id, h.profile_idx) for h in hits}, planted,
+                      f"engine scan ({len(hits)} hits)")
+        for h in hits:
+            if not (np.isfinite(h.alt_loglik) and h.match):
+                raise SystemExit(f"engine scan: malformed hit {h}")
+        alt, null = engine.last_scores
+        if alt.shape != (len(reads), NPROF) or not np.isfinite(alt).all():
+            raise SystemExit("engine scan: pass-1 scores not finite "
+                             f"[{len(reads)}, {NPROF}]")
+        print(f"engine scan: {launches[semiring]} {KERNEL_NAME[semiring]} "
+              f"launches = {len(engine.blocks)} blocks x {len(classes)} "
+              "classes")
+
+        # every pass-1 cell of that run against the plain version, and
+        # kernel vs plain times, class by class
+        worst = kernel_ms = plain_ms = 0.0
+        for codes in sorted(classes):
+            ids = classes[codes]
+            order, eidx, slen = engine.batch([encoded[si] for si in ids],
+                                             codes)
+            rows_ = [ids[j] for j in order]
+            t0 = time.perf_counter()
+            blks = [engine.packed(b, codes) for b in engine.blocks]
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            plains = []
+
+            def run_plain():
+                plains.clear()
+                for blk in blks:
+                    plains.append(vc.scores_plain(
+                        blk, eidx, slen, semiring=semiring))
+
+            def run_kernel():
+                for blk in blks:
+                    vc.scores(blk, eidx, slen, semiring=semiring)
+
+            p_ms = timed_ms(run_plain)
+            k_ms = timed_ms(run_kernel, reps=3)
+            d_cls = 0.0
+            for b, (pa, pn) in zip(engine.blocks, plains):
+                for got_, want_ in ((alt, pa), (null, pn)):
+                    run = torch.from_numpy(
+                        got_[np.ix_(rows_, b.chunk)]).to(dev)
+                    d, excess = max_excess(run, want_, semiring)
+                    if excess > 0:
+                        raise SystemExit(
+                            f"pass-1 cell off plain: {semiring}, class "
+                            f"{codes}, kpad {b.kpad}: max|d| {d}")
+                    d_cls = max(d_cls, d)
+            print(f"class {codes or 'ACGT'} ({len(ids)} reads, ntab "
+                  f"{blks[0].fm.shape[1]}): {len(ids) * NPROF} cells x "
+                  f"(alt, null) equal plain, max|d| {d_cls:.3g}; kernel "
+                  f"{k_ms:.3f} ms vs plain {p_ms:.3f} ms over "
+                  f"{len(blks)} blocks; tables {build_s:.3f} s (host clock)")
+            worst = max(worst, d_cls)
+            kernel_ms += k_ms
+            plain_ms += p_ms
+            del blks, plains
+        torch.cuda.empty_cache()
+
+        scan_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ms = timed_ms(lambda: engine.scan(seqs))
+            scan_s.append((ms / 1e3, time.perf_counter() - t0))
+        warm = min(s for s, _ in scan_s)
+        tm = engine.last_timings
+        print(f"warm scan phases (host clock, last run): pass 1 "
+              f"{tm['pass1']:.4f} s (incl. extended tables), gate "
+              f"{tm['gate']:.4f} s, pass 2 {tm['pass2']:.4f} s for "
+              f"{tm['survivors']} survivors")
+        print(f"warm scan {algo} (min of 3, CUDA events): {warm:.4f} s "
+              f"(host clock {min(h for _, h in scan_s):.4f} s), "
+              f"{cells / warm / 1e9:.2f} GCUPS (3 x sum len x sum core, "
+              f"{len(reads)} reads)")
+        out[semiring] = dict(launches=launches[semiring], max_abs_err=worst,
+                             ms=kernel_ms, plain_ms=plain_ms)
+        del engine
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -299,15 +420,16 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}")
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     _build.library()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s "
+    print(f"kernel build: {time.perf_counter() - t_start:.2f} s "
           f"(nvcc {_build.BUILD_SECONDS:.2f} s)")
     for line in _build.BUILD_LOG.splitlines():
         if any(w in line for w in ("Compiling", "registers", "spill",
                                    "error")):
             print(f"  ptxas: {line.strip()}")
     menu_err = phase_kernel_menu(dev)
+    print(f"menu done at {time.perf_counter() - t_start:.1f} s")
     # scratch for the synthetic DB and reads, inside the checkout
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "chip_smoke")
@@ -316,13 +438,17 @@ def main() -> int:
         main_path = phase_main_path(dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    main_path["max_abs_err"] = max(main_path["max_abs_err"], menu_err)
+    print(f"main path done at {time.perf_counter() - t_start:.1f} s")
     if "jax" in sys.modules:
         raise SystemExit("jax was imported")
-    print(json.dumps({"kernels": [{
-        "name": "viterbi_max", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, **main_path,
-    }]}))
+    kernels = []
+    for semiring, rec in main_path.items():
+        rec["max_abs_err"] = max(rec["max_abs_err"], menu_err[semiring])
+        kernels.append({
+            "name": KERNEL_NAME[semiring], "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES, **rec,
+        })
+    print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

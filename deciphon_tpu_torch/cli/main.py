@@ -2,9 +2,11 @@
 
 The counterpart of deciphon_tpu/cli/main.py for the scan path.  ``press``
 and ``info`` are the shared host commands of the JAX package (they import
-no jax); ``scan`` runs the port's engine on ``--device`` (default cuda).
-The daemon (``serve``), ``--forward``, ``--best-hit``, ``--shard`` and
-``parity`` are later slices of the port (ROADMAP.md).
+no jax); ``scan`` runs the port's engine on ``--device`` (default cuda),
+with Viterbi or, under ``--forward``, forward scoring, on ACGT reads and
+on reads holding IUPAC ambiguity codes.  The daemon (``serve``),
+``--best-hit``, ``--shard``, ``parity`` and standard (typeid-1)
+databases are later slices of the port (ROADMAP.md).
 
     python -m deciphon_tpu_torch.cli.main press db.hmm -o db.dtp
     python -m deciphon_tpu_torch.cli.main scan db.dtp reads.fa -o prods.tsv
@@ -41,6 +43,7 @@ def cmd_scan(args) -> int:
             multi_hits=not args.no_multi_hits,
             hmmer3_compat=args.hmmer3_compat,
             lrt_threshold=args.lrt_threshold,
+            algo="forward" if args.forward else "viterbi",
         ),
         device=args.device,
     )
@@ -94,6 +97,12 @@ def main(argv=None) -> int:
     p.add_argument(
         "--batch-size", type=int, default=1024,
         help="reads scanned per device batch (memory bound)",
+    )
+    p.add_argument(
+        "--forward", action="store_true",
+        help="score with the forward algorithm (logsumexp over all "
+             "paths) instead of Viterbi: logliks/LRT measure total path "
+             "mass; match strings still decode the Viterbi path",
     )
     p.add_argument(
         "--device", default="cuda",

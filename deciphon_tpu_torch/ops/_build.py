@@ -54,6 +54,7 @@ def library() -> ctypes.CDLL:
         h.update(src.read_bytes())
     out = BUILD_DIR / f"libdcp_kernels_{h.hexdigest()[:16]}.so"
     if not out.exists():
+        nvcc = _nvcc()  # raises before any file is made
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
         # build under a private name, then rename: concurrent builds
@@ -61,7 +62,7 @@ def library() -> ctypes.CDLL:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)],
+            [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)],
             capture_output=True, text=True,
         )
         BUILD_LOG = proc.stdout + proc.stderr
@@ -72,10 +73,11 @@ def library() -> ctypes.CDLL:
         BUILD_SECONDS = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dcp_viterbi_max.argtypes = [
-        p, p, p, p, p, p, f, f, p, p, i, i, i, i, i, p,
-    ]
-    lib.dcp_viterbi_max.restype = i
+    # (fm, fin, trans, eidx, seq_len, sp, t_EJ, t_EC, alt, nul,
+    #  S, B, K, ntab, Lp, stream), one entry point per semiring
+    for fn in (lib.dcp_viterbi_max, lib.dcp_viterbi_lse):
+        fn.argtypes = [p, p, p, p, p, p, f, f, p, p, i, i, i, i, i, p]
+        fn.restype = i
     lib.dcp_cuda_error_string.argtypes = [i]
     lib.dcp_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib

@@ -1,20 +1,29 @@
 """Batched scan engine on torch: reads x profile database -> LRT hits.
 
-The counterpart of deciphon_tpu/ops/scan_engine.py for the default scan
-(Viterbi, ACGT reads), with the same two passes:
+The counterpart of deciphon_tpu/ops/scan_engine.py, with the same two
+passes:
 
   pass 1 (device): profiles packed into blocks of one padded width
     (db/partition.pack_profile_rows) with their fragment tables built on
-    the device; every (read, profile) pair scored by the CUDA Viterbi
-    kernel (the plain torch recurrence on the CPU).  Every block is
-    queued before one host sync; then the LRT gate (xmath.h:236-247).
-  pass 2 (survivors only): backpointer DP + host walk
+    the device; reads split into classes by their set of IUPAC codes
+    (scan_engine.py:723-761); every (read, profile) pair of every class
+    scored by the CUDA kernel of the scan's semiring (Viterbi, or
+    forward under ``algo="forward"``), on base-4 tables for ACGT reads
+    and on base-(4+D) tables for a class of D codes (the plain torch
+    recurrence on the CPU).  Every launch is queued before one host
+    sync; then the LRT gate (xmath.h:236-247).
+  pass 2 (survivors only): backpointer Viterbi DP + host walk
     (ops/viterbi_trace.py), decoded into match strings by the shared
-    codec.
+    codec.  Under forward the hits carry forward logliks and the
+    Viterbi path, as in the reference (scan_engine.py:58-63).
+
+The base-4 tables stay on the device between scans.  A class's extended
+tables are built per block just before that block's launch and released
+right after it is queued, so at most one extended block is alive at a
+time (base-6 tables are ~7x the base-4 ones).
 
 The device is explicit: ``device="cuda"`` on a machine without a GPU
-raises, and the CPU runs only when named.  Forward scoring and reads with
-IUPAC ambiguity codes are later slices of the port (ROADMAP.md).
+raises, and the CPU runs only when named.
 """
 
 from __future__ import annotations
@@ -44,7 +53,13 @@ class ScanParams:
     multi_hits: bool = True
     hmmer3_compat: bool = False
     lrt_threshold: float = 10.0
-    algo: str = "viterbi"  # "forward" is not ported yet
+    algo: str = "viterbi"  # "viterbi" | "forward"
+
+    @property
+    def semiring(self) -> str:
+        if self.algo not in ("viterbi", "forward"):
+            raise ValueError(f"unknown algo {self.algo!r}")
+        return "logsumexp" if self.algo == "forward" else "max"
 
 
 @dataclass
@@ -95,11 +110,7 @@ class ScanEngine:
 
     def __init__(self, db: TensorDB, params: ScanParams = ScanParams(),
                  device="cuda", progress=None):
-        if params.algo != "viterbi":
-            raise NotImplementedError(
-                f"algo={params.algo!r} is not ported to deciphon_tpu_torch "
-                "yet (ROADMAP.md, queue 1: forward)"
-            )
+        params.semiring  # ValueError on an unknown algo
         self.db = db
         self.params = params
         self.device = resolve_device(device)
@@ -125,8 +136,15 @@ class ScanEngine:
         # the scan's one sync, so it includes the device time)
         self.last_timings: dict = {}
 
-    def packed(self, blk: Block) -> vc.CudaBlock:
-        """The block's kernel-layout tables, built on the device once."""
+    def packed(self, blk: Block, codes: tuple = ()) -> vc.CudaBlock:
+        """The block's kernel-layout tables: the base-4 ones, built on
+        the device once and kept; extended ones (``codes``) built anew
+        on every call and owned by the caller."""
+        if codes:
+            return vc.CudaBlock.from_profiles(
+                [self.db.profile(int(i)) for i in blk.chunk],
+                kpad=blk.kpad, device=self.device, codes=codes,
+            )
         if blk.packed is None:
             blk.packed = vc.CudaBlock.from_profiles(
                 [self.db.profile(int(i)) for i in blk.chunk],
@@ -135,30 +153,32 @@ class ScanEngine:
         return blk.packed
 
     def prepare(self) -> None:
-        """Build every block's tables (the scan's set-up)."""
+        """Build every block's base-4 tables (the scan's set-up)."""
         for blk in self.blocks:
             self.packed(blk)
 
-    def encode(self, seqs: Sequence[SeqRecord]) -> list[np.ndarray]:
-        encoded = []
-        for rec in seqs:
-            enc, codes = encode_extended(rec.data)  # ValueError: non-IUPAC
-            if codes:
-                raise NotImplementedError(
-                    f"read {rec.name!r} holds IUPAC ambiguity codes "
-                    f"{''.join(codes)}: not ported to deciphon_tpu_torch "
-                    "yet (ROADMAP.md, queue 1: IUPAC)"
-                )
+    def encode(self, seqs: Sequence[SeqRecord]):
+        """(encoded reads, {codes: [read indices]}): each read's symbols
+        (ACGT 0..3, its j-th distinct IUPAC code 4+j) and the read
+        classes by code set; ValueError on a non-IUPAC letter."""
+        encoded, classes = [], {}
+        for si, rec in enumerate(seqs):
+            enc, codes = encode_extended(rec.data)
             encoded.append(enc)
-        return encoded
+            classes.setdefault(codes, []).append(si)
+        return encoded, classes
 
-    def batch(self, encoded: list[np.ndarray]):
-        """(order, eidx [S, Lp, 5], seq_len [S]) on the device, reads
-        sorted by length descending (``order`` maps rows to inputs)."""
+    def batch(self, encoded: list[np.ndarray], codes: tuple = ()):
+        """(order, eidx [S, Lp, 5], seq_len [S]) on the device for one
+        read class, rows sorted by length descending (``order`` maps rows
+        to positions in ``encoded``); indices over base 4+len(codes)."""
+        base = 4 + len(codes)
         order = sorted(range(len(encoded)), key=lambda si: -len(encoded[si]))
         Lp = max(1, max(len(e) for e in encoded))
         eidx = np.stack([
-            end_fragment_indices(fragment_indices(encoded[si], pad_to=Lp))
+            end_fragment_indices(
+                fragment_indices(encoded[si], pad_to=Lp, base=base), base
+            )
             for si in order
         ])
         slen = np.array([len(encoded[si]) for si in order], np.int32)
@@ -171,12 +191,12 @@ class ScanEngine:
     def scan(self, seqs: Sequence[SeqRecord]) -> list[Hit]:
         """Score all (read, profile) pairs; return the LRT-passing hits
         with traceback and match strings, ordered (read, profile)."""
-        encoded = self.encode(seqs)
+        encoded, classes = self.encode(seqs)
         if not seqs:
             return []
         counters = trace.ScanCounters()
         t0 = time.perf_counter()
-        alt, null = self._pass1(encoded, counters)
+        alt, null = self._pass1(encoded, classes, counters)
         t1 = time.perf_counter()
         self.last_scores = (alt, null)
         p = self.params
@@ -185,9 +205,10 @@ class ScanEngine:
         ok &= alt > NEG / 2
         if self.progress is not None:
             self.progress.consume(alt.size)
+        codes_of = {si: c for c, ids in classes.items() for si in ids}
         survivors = [
-            (int(si), int(gi), float(alt[si, gi]), float(null[si, gi]),
-             float(lrt[si, gi]))
+            (int(si), int(gi), codes_of[int(si)], float(alt[si, gi]),
+             float(null[si, gi]), float(lrt[si, gi]))
             for si, gi in np.argwhere(ok)
         ]
         t2 = time.perf_counter()
@@ -200,47 +221,61 @@ class ScanEngine:
         hits.sort(key=lambda h: (h.seq_idx, h.profile_idx))
         return hits
 
-    def _pass1(self, encoded, counters):
+    def _pass1(self, encoded, classes, counters):
+        """[reads, profiles] (alt, null) of every class and block; every
+        launch is queued before the one host sync."""
         p = self.params
-        order, eidx, slen = self.batch(encoded)
-        len_sum = int(sum(len(e) for e in encoded))
-        outs = []
-        for blk in self.blocks:
-            counters.consume(
-                len_sum, int(self.db.core_sizes[blk.chunk].sum())
-            )
-            outs.append(vc.scores(
-                self.packed(blk), eidx, slen,
-                multi_hits=p.multi_hits, hmmer3_compat=p.hmmer3_compat,
-            ))
+        rows, outs = [], []
+        for codes in sorted(classes):
+            ids = classes[codes]
+            order, eidx, slen = self.batch([encoded[si] for si in ids], codes)
+            rows.extend(ids[j] for j in order)
+            len_sum = int(slen.sum())
+            per_block = []
+            for blk in self.blocks:
+                counters.consume(
+                    len_sum, int(self.db.core_sizes[blk.chunk].sum())
+                )
+                # an extended block is dropped as soon as its launch is
+                # queued: the caching allocator reuses its memory only
+                # for later work on the same stream, which runs after
+                # the queued kernel
+                per_block.append(vc.scores(
+                    self.packed(blk, codes), eidx, slen,
+                    multi_hits=p.multi_hits, hmmer3_compat=p.hmmer3_compat,
+                    semiring=p.semiring,
+                ))
+            outs.append(torch.stack([
+                torch.cat([a for a, _ in per_block], 1),
+                torch.cat([n for _, n in per_block], 1),
+            ]))
         # the scan's one host sync
-        alt, null = torch.stack([
-            torch.cat([a for a, _ in outs], 1),
-            torch.cat([n for _, n in outs], 1),
-        ]).cpu().numpy()
+        alt, null = torch.cat(outs, 1).cpu().numpy()
         cols = np.concatenate([blk.chunk for blk in self.blocks])
         S, P = len(encoded), self.db.nprofiles
         out_alt = np.empty((S, P), np.float32)
         out_null = np.empty((S, P), np.float32)
-        out_alt[np.ix_(order, cols)] = alt
-        out_null[np.ix_(order, cols)] = null
+        out_alt[np.ix_(rows, cols)] = alt
+        out_null[np.ix_(rows, cols)] = null
         return out_alt, out_null
 
     def _traceback(self, seqs, encoded, survivors) -> list[Hit]:
-        """Pass 2, batched by padded width (one DP per group)."""
-        groups: dict[int, list] = {}
+        """Pass 2, batched by (padded width, read class): one DP per
+        group."""
+        groups: dict[tuple, list] = {}
         for item in survivors:
-            groups.setdefault(self._kpad_of[item[1]], []).append(item)
+            key = (self._kpad_of[item[1]], item[2])
+            groups.setdefault(key, []).append(item)
         hits: list[Hit] = []
-        for kpad, items in groups.items():
+        for (kpad, codes), items in groups.items():
             profs = [self.db.profile(gi) for _, gi, *_ in items]
             results = vtr.viterbi_alt_batch(
                 profs, [encoded[si] for si, *_ in items],
                 multi_hits=self.params.multi_hits,
                 hmmer3_compat=self.params.hmmer3_compat,
-                kpad=kpad, device=self.device,
+                kpad=kpad, device=self.device, codes=codes,
             )
-            for (si, gi, alt, null, lrt), prof, res in zip(
+            for (si, gi, _, alt, null, lrt), prof, res in zip(
                 items, profs, results
             ):
                 rec = seqs[si]

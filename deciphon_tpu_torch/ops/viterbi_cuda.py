@@ -7,6 +7,8 @@ The counterpart of the host side of deciphon_tpu/ops/viterbi_pallas.py:
 
 The kernel's own layout, per block of B profiles padded to K nodes:
   fm    [B, ntab, K]  match fragment tables, rows contiguous along K
+                      (ntab = 1365 for ACGT reads, 3906 / 9331 / ...
+                      for reads holding 1 / 2 / ... IUPAC codes)
   fin   [B, 2, ntab]  insert and null fragment tables
   trans [B, 8, K]     planes ENTRY, MM_OUT, IM_OUT, DM_OUT, MI, II,
                       ABASE, CDD (viterbi_pallas.py:119)
@@ -14,8 +16,9 @@ K is a multiple of LANE so every thread's node group is one aligned
 float4.  None of the TPU layout (sublane groups, segments, slot spans,
 VMEM streaming, SMEM chunks) carries over.
 
-``scores_plain`` is the recurrence in plain torch on any device; it is
-the port's one plain version of the kernel.  ``scores`` runs it for CPU
+``scores_plain`` is the recurrence in plain torch on any device, under
+either semiring ("max" = Viterbi, "logsumexp" = forward); it is the
+port's one plain version of the kernel.  ``scores`` runs it for CPU
 tensors and launches the kernel for CUDA tensors, with no fallback.
 """
 
@@ -27,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from deciphon_tpu_torch.ops.tables import NTAB, synth_fragment_tables
+from deciphon_tpu_torch.ops.tables import synth_fragment_tables
 from deciphon_tpu_torch.ops.viterbi_torch import NEG, TRANS_NAMES, specials
 
 (P_ENTRY, P_MM_OUT, P_IM_OUT, P_DM_OUT, P_MI, P_II, P_ABASE, P_CDD) = range(8)
@@ -35,9 +38,11 @@ NPLANES = 8
 LANE = 32  # node padding unit of the packed K axis
 MAX_K = 4096  # the reference's core-size envelope (core/limits.h:11)
 
-# kernel launches made by scores(); callers that must show a run went
-# through the kernel set it to 0 before the run and read it after
-LAUNCHES = 0
+SEMIRINGS = ("max", "logsumexp")
+# kernel launches made by scores(), per semiring (the kernel's two
+# instantiations); callers that must show a run went through a kernel
+# set the counts to 0 before the run and read them after
+LAUNCHES = dict.fromkeys(SEMIRINGS, 0)
 
 
 class CudaBlock(NamedTuple):
@@ -53,22 +58,25 @@ class CudaBlock(NamedTuple):
 
     @classmethod
     def from_profiles(cls, profiles, kpad: int | None = None,
-                      device="cuda") -> "CudaBlock":
+                      device="cuda", codes: tuple = ()) -> "CudaBlock":
         """Build with the fragment tables synthesized on ``device`` from
         the compact per-node inputs (ops/tables.py) — the counterpart of
-        PallasBlock.from_profiles."""
-        margp, qp, inm, inq, trans, eps = pack_compact(profiles, kpad)
-        B, K = margp.shape[:2]
+        PallasBlock.from_profiles.  Non-empty ``codes`` builds the
+        extended base-(4+D) tables of reads holding those IUPAC codes."""
+        emis, qp, ine, inq, trans, eps = pack_compact(profiles, kpad, codes)
+        B, K, W = emis.shape
         dev = torch.device(device)
-        fm = synth_fragment_tables(
-            torch.from_numpy(margp.reshape(-1, 125)).to(dev),
-            torch.from_numpy(qp.reshape(-1, 5)).to(dev), eps,
-        )
-        fm = fm.reshape(B, K, NTAB).transpose(1, 2).contiguous()
-        fin = synth_fragment_tables(
-            torch.from_numpy(inm.reshape(-1, 125)).to(dev),
-            torch.from_numpy(inq.reshape(-1, 5)).to(dev), eps,
-        ).reshape(B, 2, NTAB)
+
+        def synth(e, q):
+            return synth_fragment_tables(
+                torch.from_numpy(e.reshape(-1, W)).to(dev),
+                torch.from_numpy(q.reshape(-1, 5)).to(dev), eps, codes,
+            )
+
+        fm = synth(emis, qp)
+        ntab = fm.shape[1]
+        fm = fm.reshape(B, K, ntab).transpose(1, 2).contiguous()
+        fin = synth(ine, inq).reshape(B, 2, ntab)
         return cls(fm, fin, torch.from_numpy(trans).to(dev))
 
 
@@ -133,43 +141,58 @@ def pack_numpy_block(block) -> CudaBlock:
     )
 
 
-def pack_compact(profiles, kpad: int | None = None):
+def pack_compact(profiles, kpad: int | None = None, codes: tuple = ()):
     """Host side of device table synthesis: compact per-node emission
     inputs instead of full tables (viterbi_pallas.pack_block_compact).
 
-    Returns (margp [B, Kp, 125], qp [B, Kp, 5], inm [B, 2, 125],
-    inq [B, 2, 5], trans [B, NPLANES, Kp], eps); row 0 of inm/inq is the
-    insert distribution, row 1 the null one."""
+    Returns (emis [B, Kp, W], qp [B, Kp, 5], ine [B, 2, W],
+    inq [B, 2, 5], trans [B, NPLANES, Kp], eps); row 0 of ine/inq is the
+    insert distribution, row 1 the null one.  ``emis`` holds the codon
+    marginals (W = 125) for base-4 tables, and the codon probabilities
+    (W = 64) when ``codes`` asks for extended ones."""
     B = len(profiles)
     K = max(p.core_size for p in profiles)
     if kpad is not None:
         assert kpad >= K
         K = kpad
     Kp = pad_width(K)
-    margp = np.zeros((B, Kp, 125), np.float32)
+    kind, W = ("codonp", 64) if codes else ("marg", 125)
+    emis = np.zeros((B, Kp, W), np.float32)
     qp = np.zeros((B, Kp, 5), np.float32)
-    inm = np.zeros((B, 2, 125), np.float32)
+    ine = np.zeros((B, 2, W), np.float32)
     inq = np.zeros((B, 2, 5), np.float32)
     arrs = {n: np.full((B, Kp), NEG, np.float32) for n in TRANS_NAMES}
     for b, p in enumerate(profiles):
         k = p.core_size
         # zero probabilities on padding nodes -> log 0 -> NEG on device
-        margp[b, :k] = np.exp(p.match_marg)
+        emis[b, :k] = np.exp(getattr(p, f"match_{kind}"))
         qp[b, :k] = np.exp(p.match_q)
-        inm[b, 0] = np.exp(p.insert_marg)
+        ine[b, 0] = np.exp(getattr(p, f"insert_{kind}"))
         inq[b, 0] = np.exp(p.insert_q)
-        inm[b, 1] = np.exp(p.null_marg)
+        ine[b, 1] = np.exp(getattr(p, f"null_{kind}"))
         inq[b, 1] = np.exp(p.null_q)
         for name, arr in arrs.items():
             arr[b, :k] = np.maximum(
                 np.asarray(getattr(p, name), np.float64), NEG
             )
     eps = float(profiles[0].cfg.epsilon)
-    return margp, qp, inm, inq, pack_trans(arrs), eps
+    return emis, qp, ine, inq, pack_trans(arrs), eps
 
 
 # rows of the specials ring (VB enters the DP only through ring_cs)
 S_N, S_J, S_C, S_E, S_R = range(5)
+
+
+def _semiring(name: str):
+    """(join, reduce over a dim, inclusive prefix scan along the last
+    dim): max = Viterbi, logsumexp = forward (viterbi_pallas.py:165)."""
+    if name == "max":
+        return (torch.maximum, torch.amax,
+                lambda x: torch.cummax(x, dim=-1).values)
+    if name == "logsumexp":
+        return (torch.logaddexp, torch.logsumexp,
+                lambda x: torch.logcumsumexp(x, dim=-1))
+    raise ValueError(f"unknown semiring {name!r}")
 
 
 def scores_plain(
@@ -178,15 +201,19 @@ def scores_plain(
     seq_len: torch.Tensor,  # [S] int32
     multi_hits: bool = True,
     hmmer3_compat: bool = False,
+    semiring: str = "max",
 ):
     """Plain torch version of the kernel: (alt [S, B], null [S, B]) f32.
 
-    The recurrence of viterbi_pallas._kernel for semiring "max", batched
-    over [S reads, B profiles, K nodes] with a Python loop over
-    positions: a 5-slot lookback ring of the core in-flow (with B->entry
-    folded in at write time), the N/J/C/R specials from each read's
-    length, the D-chain as a telescoped prefix max (torch.cummax) and the
-    capture of alt = T and null = R at i == seq_len."""
+    The recurrence of viterbi_pallas._kernel, batched over [S reads,
+    B profiles, K nodes] with a Python loop over positions: a 5-slot
+    lookback ring of the core in-flow (with B->entry folded in at write
+    time), the N/J/C/R specials from each read's length, the D-chain as a
+    telescoped prefix scan and the capture of alt = T and null = R at
+    i == seq_len.  Under "max" the joins are maxima and the scan a
+    cummax; under "logsumexp" they are logaddexp, logsumexp and
+    logcumsumexp.  The NEG clamp of the D-chain is the same in both."""
+    join, red, cum = _semiring(semiring)
     fm, fin, trans = blk
     B, _, K = fm.shape
     S = eidx.shape[0]
@@ -217,39 +244,31 @@ def scores_plain(
             slot = (i - l) % 5
             cm = ring_cs[slot] + em_m[:, :, l - 1].transpose(0, 1)
             ci = ring_ic[slot] + em_in[:, 0, :, l - 1].T[:, :, None]
-            accM = cm if accM is None else torch.maximum(accM, cm)
-            accI = ci if accI is None else torch.maximum(accI, ci)
+            accM = cm if accM is None else join(accM, cm)
+            accI = ci if accI is None else join(accI, ci)
         sp5 = torch.stack([ring_s[(i - l) % 5] for l in range(1, 6)])
         en5 = em_in[:, 1].permute(2, 1, 0)  # [5, S, B]
         # start gate: position i-l == 0 (the S state) only when l == i
         start5 = torch.where(lookback == i, 0.0, NEG)
-        accN = (torch.maximum(sp5[:, S_N], start5) + t_NN + en5).amax(0)
-        accJ = (
-            torch.maximum(sp5[:, S_E] + t_EJ, sp5[:, S_J]) + t_NN + en5
-        ).amax(0)
-        accC = (
-            torch.maximum(sp5[:, S_E] + t_EC, sp5[:, S_C]) + t_NN + en5
-        ).amax(0)
-        accR = (torch.maximum(sp5[:, S_R] + t_RR, start5) + en5).amax(0)
+        accN = red(join(sp5[:, S_N], start5) + t_NN + en5, 0)
+        accJ = red(join(sp5[:, S_E] + t_EJ, sp5[:, S_J]) + t_NN + en5, 0)
+        accC = red(join(sp5[:, S_E] + t_EC, sp5[:, S_C]) + t_NN + en5, 0)
+        accR = red(join(sp5[:, S_R] + t_RR, start5) + en5, 0)
 
-        # mute D-chain: VD = cdd + (prefix max of VM + a_base, shifted)
-        b = torch.cummax(accM + a_base, dim=-1).values
+        # mute D-chain: VD = cdd + (prefix scan of VM + a_base, shifted)
+        b = cum(accM + a_base)
         VD = torch.clamp_min(cdd + torch.cat([neg1, b[..., :-1]], -1), NEG)
-        VE = torch.maximum(accM, VD).amax(-1)
-        VB = torch.maximum(
-            accN + t_NB, torch.maximum(VE + t_EJ + t_NB, accJ + t_NB)
-        )
-        VT = torch.maximum(VE + t_EC + t_NB, accC + t_NB)
+        VE = red(join(accM, VD), -1)
+        VB = join(accN + t_NB, join(VE + t_EJ + t_NB, accJ + t_NB))
+        VT = join(VE + t_EC + t_NB, accC + t_NB)
         hit = (seq_len == i)[:, None]
         alt = torch.where(hit, VT, alt)
         null = torch.where(hit, accR, null)
 
-        core = torch.maximum(
-            accM + mm_out, torch.maximum(accI + im_out, VD + dm_out)
-        )
+        core = join(accM + mm_out, join(accI + im_out, VD + dm_out))
         core_sh = torch.cat([neg1, core[..., :-1]], -1)
-        ring_cs[i % 5] = torch.maximum(core_sh, VB[..., None] + entry)
-        ring_ic[i % 5] = torch.maximum(accM + mi, accI + ii)
+        ring_cs[i % 5] = join(core_sh, VB[..., None] + entry)
+        ring_ic[i % 5] = join(accM + mi, accI + ii)
         ring_s[i % 5] = torch.stack([accN, accJ, accC, VE, accR])
     return alt, null
 
@@ -260,16 +279,20 @@ def scores(
     seq_len: torch.Tensor,
     multi_hits: bool = True,
     hmmer3_compat: bool = False,
+    semiring: str = "max",
 ):
     """(alt [S, B], null [S, B]) f32: the plain version for a block on
-    the CPU, the CUDA kernel for a block on the card."""
+    the CPU, the CUDA kernel of ``semiring`` for a block on the card."""
+    if semiring not in SEMIRINGS:
+        raise ValueError(f"unknown semiring {semiring!r}")
     if not blk.fm.is_cuda:
-        return scores_plain(blk, eidx, seq_len, multi_hits, hmmer3_compat)
-    return _launch(blk, eidx, seq_len, multi_hits, hmmer3_compat)
+        return scores_plain(
+            blk, eidx, seq_len, multi_hits, hmmer3_compat, semiring
+        )
+    return _launch(blk, eidx, seq_len, multi_hits, hmmer3_compat, semiring)
 
 
-def _launch(blk, eidx, seq_len, multi_hits, hmmer3_compat):
-    global LAUNCHES
+def _launch(blk, eidx, seq_len, multi_hits, hmmer3_compat, semiring):
     from deciphon_tpu_torch.ops import _build
 
     fm, fin, trans = blk
@@ -304,9 +327,10 @@ def _launch(blk, eidx, seq_len, multi_hits, hmmer3_compat):
     if S == 0 or B == 0:
         return alt, null
     lib = _build.library()
+    kernel = lib.dcp_viterbi_max if semiring == "max" else lib.dcp_viterbi_lse
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.dcp_viterbi_max(
+        rc = kernel(
             fm.data_ptr(), fin.data_ptr(), trans.data_ptr(),
             eidx.data_ptr(), seq_len.data_ptr(), sp.data_ptr(),
             ctypes.c_float(xt["EJ"]), ctypes.c_float(xt["EC"]),
@@ -314,7 +338,8 @@ def _launch(blk, eidx, seq_len, multi_hits, hmmer3_compat):
         )
     if rc != 0:
         raise RuntimeError(
-            f"viterbi kernel launch failed: {_build.error_string(rc)}"
+            f"viterbi kernel ({semiring}) launch failed: "
+            f"{_build.error_string(rc)}"
         )
-    LAUNCHES += 1
+    LAUNCHES[semiring] += 1
     return alt, null

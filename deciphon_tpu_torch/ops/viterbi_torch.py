@@ -18,7 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from deciphon_tpu.models.frame import FRAG_SENTINEL
+from deciphon_tpu.models.frame import frag_layout
 from deciphon_tpu.models.profile import ProteinProfile
 
 NEG = -1e30  # effective -inf that stays NaN-free through the D-chain sums
@@ -30,9 +30,9 @@ class ProfileBlock(NamedTuple):
     Same fields and layout as viterbi_jax.ProfileBlock; padding nodes
     carry NEG transitions and emissions so they never score."""
 
-    fm: np.ndarray  # [B, Kpad, 1365] match fragment tables
-    fi: np.ndarray  # [B, 1365] insert fragment table
-    fn: np.ndarray  # [B, 1365] null/special fragment table (R,N,J,C)
+    fm: np.ndarray  # [B, Kpad, ntab] match fragment tables
+    fi: np.ndarray  # [B, ntab] insert fragment table
+    fn: np.ndarray  # [B, ntab] null/special fragment table (R,N,J,C)
     entry: np.ndarray  # [B, Kpad]
     mm_in: np.ndarray
     im_in: np.ndarray
@@ -52,24 +52,28 @@ def _clamp(a, dtype=np.float32) -> np.ndarray:
 
 
 def build_profile_block(
-    profiles: list[ProteinProfile], kpad: int | None = None
+    profiles: list[ProteinProfile], kpad: int | None = None,
+    codes: tuple | None = None,
 ) -> ProfileBlock:
-    """Stack + pad profiles into a host block of base-4 fragment tables
-    (the f64 host tables of ProteinProfile.fragment_tables, clamped to NEG
-    and cast to f32)."""
+    """Stack + pad profiles into a host block of fragment tables (the f64
+    host tables of ProteinProfile.fragment_tables, clamped to NEG and
+    cast to f32): base 4, or base 4+len(codes) for reads holding the
+    IUPAC ``codes`` (ntab = 1365, 3906, 9331, ... rows)."""
     B = len(profiles)
     K = max(p.core_size for p in profiles)
     if kpad is not None:
         assert kpad >= K
         K = kpad
-    ntab = FRAG_SENTINEL + 1
+    codes = tuple(codes) if codes is not None else ()
+    base = 4 + len(codes)
+    ntab = frag_layout(base)[1] + 1
     fm = np.full((B, K, ntab), NEG, np.float32)
     fi = np.empty((B, ntab), np.float32)
     fn = np.empty((B, ntab), np.float32)
     arrs = {n: np.full((B, K), NEG, np.float32) for n in TRANS_NAMES}
     core = np.empty(B, np.int32)
     for b, p in enumerate(profiles):
-        fmat, fins, fnull = p.fragment_tables()
+        fmat, fins, fnull = p.fragment_tables(base=base, codes=codes)
         fm[b, : p.core_size] = _clamp(fmat)
         fi[b] = _clamp(fins)
         fn[b] = _clamp(fnull)
@@ -79,14 +83,15 @@ def build_profile_block(
     return ProfileBlock(fm=fm, fi=fi, fn=fn, core_size=core, **arrs)
 
 
-def end_fragment_indices(fidx: np.ndarray) -> np.ndarray:
-    """[Lp, 5] indices of base-4 fragments *ending* at position i.
+def end_fragment_indices(fidx: np.ndarray, base: int = 4) -> np.ndarray:
+    """[Lp, 5] indices of base-``base`` fragments *ending* at position i.
 
     eidx[i-1, l-1] = index of seq[i-l : i] (from the start-indexed table
-    of ops/emissions.fragment_indices), or the NEG sentinel row when the
-    fragment would start before position 0."""
+    of ops/emissions.fragment_indices), or the NEG sentinel row (the
+    last row of the base's table) when the fragment would start before
+    position 0."""
     Lp = fidx.shape[0]
-    out = np.full((Lp, 5), FRAG_SENTINEL, dtype=np.int32)
+    out = np.full((Lp, 5), frag_layout(base)[1], dtype=np.int32)
     for l in range(1, 6):
         out[l - 1 :, l - 1] = fidx[: Lp - l + 1, l - 1]
     return out
@@ -119,10 +124,12 @@ def viterbi_scores(
     seq_len: np.ndarray,  # [S] int32
     multi_hits: bool = True,
     hmmer3_compat: bool = False,
+    semiring: str = "max",
 ):
     """Score every (sequence, profile) pair: (alt [S, B], null [S, B]) f32
     CPU tensors — the port of viterbi_jax.viterbi_scores (:293), run
-    through the plain recurrence.  The engine reaches the kernel through
+    through the plain recurrence.  ``semiring="logsumexp"`` runs the
+    forward algorithm.  The engine reaches the kernel through
     ``viterbi_cuda.CudaBlock`` instead."""
     from deciphon_tpu_torch.ops import viterbi_cuda as vc
 
@@ -131,4 +138,20 @@ def viterbi_scores(
         torch.as_tensor(np.asarray(eidx, np.int32)),
         torch.as_tensor(np.asarray(seq_len, np.int32)),
         multi_hits=multi_hits, hmmer3_compat=hmmer3_compat,
+        semiring=semiring,
+    )
+
+
+def forward_scores(
+    block: ProfileBlock,
+    eidx: np.ndarray,
+    seq_len: np.ndarray,
+    multi_hits: bool = True,
+    hmmer3_compat: bool = False,
+):
+    """Forward-algorithm (alt, null) log-likelihoods [S, B]: logsumexp
+    over all state paths (viterbi_jax.forward_scores :322)."""
+    return viterbi_scores(
+        block, eidx, seq_len, multi_hits=multi_hits,
+        hmmer3_compat=hmmer3_compat, semiring="logsumexp",
     )

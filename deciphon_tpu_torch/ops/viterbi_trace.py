@@ -227,10 +227,15 @@ def viterbi_alt_batch(
     hmmer3_compat: bool = False,
     kpad: int | None = None,
     device="cpu",
+    codes: tuple | None = None,
 ) -> list[vr.ViterbiResult]:
     """Traceback of a stack of (profile, encoded read) hits, TRACE_BATCH
     at a time with the hit axis padded to a power of two (the reference's
-    viterbi_alt_batch :281); walks stay per hit."""
+    viterbi_alt_batch :281); walks stay per hit.  Reads holding the IUPAC
+    ``codes`` (encoded 4+j, alphabet.encode_extended) run on the
+    extended base-(4+D) tables.  The DP is Viterbi under either scan
+    semiring: a forward scan's hits still decode their best path."""
+    base = 4 + len(codes) if codes else 4
     out: list[vr.ViterbiResult] = []
     for lo in range(0, len(profs), TRACE_BATCH):
         chunk_p = profs[lo : lo + TRACE_BATCH]
@@ -242,11 +247,13 @@ def viterbi_alt_batch(
         pad_p = chunk_p + [chunk_p[0]] * (Hp - H)
         pad_s = chunk_s + [chunk_s[0]] * (Hp - H)
         Lp = max(len(s) for s in pad_s)
-        block = build_profile_block(pad_p, kpad=kpad)
-        eidx = np.stack(
-            [end_fragment_indices(fragment_indices(s, pad_to=Lp))
-             for s in pad_s]
-        )
+        block = build_profile_block(pad_p, kpad=kpad, codes=codes)
+        eidx = np.stack([
+            end_fragment_indices(
+                fragment_indices(s, pad_to=Lp, base=base), base=base
+            )
+            for s in pad_s
+        ])
         lens = np.array([len(s) for s in pad_s], np.int32)
         alt, ys = trace_dp(
             block, eidx, lens, multi_hits, hmmer3_compat, device

@@ -46,6 +46,12 @@ with open(f"{tmp}/r.fa", "w") as fp:
 assert main(["scan", f"{tmp}/s.dtp", f"{tmp}/r.fa", "-o", f"{tmp}/p.tsv",
              "--device", "cpu"]) == 0
 assert p.accession in open(f"{tmp}/p.tsv").read()
+# a forward scan of one read holding N (extended tables)
+with open(f"{tmp}/n.fa", "w") as fp:
+    fp.write(f">n1\n{read[:4]}N{read[5:]}\n")
+assert main(["scan", f"{tmp}/s.dtp", f"{tmp}/n.fa", "-o", f"{tmp}/f.tsv",
+             "--device", "cpu", "--forward"]) == 0
+assert p.accession in open(f"{tmp}/f.tsv").read()
 jax_mods = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
 assert not jax_mods, jax_mods
 print("NO-JAX OK")

@@ -1,16 +1,18 @@
 """The port's ScanEngine (device="cpu") vs the JAX ScanEngine (CPU).
 
-Same (read, profile) hits, logliks within 1e-4 (tests/test_scan_engine.py
-:112), identical paths and match strings, on the synth DB of
-tests/test_scan_engine.py:33-44; plus the planted hit, the threshold
-filter and the errors of the inputs this slice does not take.
+Same (read, profile) hits, logliks within 1e-4 for Viterbi
+(tests/test_scan_engine.py:112) and 2e-3 for forward
+(tests/test_forward.py:104), identical paths and match strings, on the
+synth DB of tests/test_scan_engine.py:33-44, for ACGT reads and reads
+holding IUPAC codes; plus the planted hits, the threshold filter, the
+freeing of extended tables and the errors of bad inputs.
 """
 
 import numpy as np
 import pytest
 
 from deciphon_tpu.db.format import TensorDB, write_db
-from deciphon_tpu.models.alphabet import DNA, STANDARD_CODE
+from deciphon_tpu.models.alphabet import DNA, STANDARD_CODE, encode_extended
 from deciphon_tpu.models.h3reader import press_file
 from deciphon_tpu.models.h3writer import random_h3, write_h3
 from deciphon_tpu.ops import scan_engine as jse
@@ -47,6 +49,22 @@ def _reads(db):
         consensus_dna(db.profile(0)),
         "ACG",
         "T",
+    ]
+
+
+def _iupac_reads(db):
+    """N reads, a partial code, mixed codes in one read and ACGT reads
+    in one batch (tests/test_scan_engine.py:129-300 patterns)."""
+    read = consensus_dna(db.profile(2))
+    code = {"A": "R", "G": "R", "C": "Y", "T": "Y"}[read[6]]
+    return [
+        read[:6] + "N" + read[7:12] + "N" + read[13:],
+        read[:6] + code + read[7:],
+        read[:3] + "N" + read[4:9] + "R" + read[10:],
+        read,
+        "NACGTACGTNACGTAC",
+        consensus_dna(db.profile(0))[:-1] + "N",
+        "ACGTTGCA",
     ]
 
 
@@ -115,15 +133,116 @@ def test_rejects_non_iupac(db):
         eng.scan([pse.SeqRecord(1, "r", "ACGTZ")])
 
 
-def test_iupac_not_ported_yet(db):
-    eng = pse.ScanEngine(db, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.scan([pse.SeqRecord(1, "r", "ACGTNACGT")])
+def _assert_same_hits(got, ref, tol):
+    assert [(h.seq_id, h.profile_idx) for h in got] == [
+        (h.seq_id, h.profile_idx) for h in ref
+    ]
+    for a, b in zip(got, ref):
+        assert a.alt_loglik == pytest.approx(b.alt_loglik, abs=tol)
+        assert a.null_loglik == pytest.approx(b.null_loglik, abs=tol)
+        assert a.lrt == pytest.approx(b.lrt, abs=2 * tol)
+        assert a.path == b.path
+        assert a.match == b.match
 
 
-def test_forward_not_ported_yet(db):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pse.ScanEngine(db, pse.ScanParams(algo="forward"), device="cpu")
+@pytest.mark.parametrize("threshold", [10.0, -1e9])
+def test_forward_hits_match_jax_engine(db, threshold):
+    """algo="forward": forward logliks, Viterbi paths and matches."""
+    reads = _reads(db)
+    got, ref = _both(db, reads, lrt_threshold=threshold, algo="forward")
+    _assert_same_hits(got, ref, 2e-3)
+    if threshold < 0:
+        assert len(got) == len(reads) * db.nprofiles
+        for h in got:  # forward mass >= the best path
+            best = vr.viterbi_alt(db.profile(h.profile_idx),
+                                  DNA.encode(reads[h.seq_idx]))
+            assert h.alt_loglik >= best.loglik - 1e-3
+    else:
+        assert (1, 2) in {(h.seq_id, h.profile_idx) for h in got}
+
+
+@pytest.mark.parametrize("algo,tol", [("viterbi", 1e-4), ("forward", 2e-3)])
+def test_iupac_hits_match_jax_engine(db, algo, tol):
+    """Every (read, profile) pair of a batch mixing N reads, a partial
+    code, two codes in one read and ACGT reads."""
+    reads = _iupac_reads(db)
+    got, ref = _both(db, reads, lrt_threshold=-1e9, algo=algo)
+    assert len(got) == len(reads) * db.nprofiles
+    _assert_same_hits(got, ref, tol)
+
+
+def test_planted_n_read_hits(db):
+    """N planted into a consensus read still hits its profile, scores as
+    the base-5 oracle and below the concrete read
+    (tests/test_scan_engine.py:129)."""
+    from deciphon_tpu.models.alphabet import encode_iupac
+
+    target = db.profile(2)
+    read = consensus_dna(target)
+    noisy = read[:6] + "N" + read[7:12] + "N" + read[13:]
+    hits = pse.ScanEngine(db, device="cpu").scan(
+        [pse.SeqRecord(1, "n", noisy), pse.SeqRecord(2, "c", read)]
+    )
+    h = {h.seq_id: h for h in hits if h.profile_idx == 2}
+    assert set(h) == {1, 2}
+    enc = encode_iupac(noisy)
+    ora = vr.viterbi_alt(target, enc, base=5)
+    assert h[1].alt_loglik == pytest.approx(ora.loglik, abs=1e-3)
+    assert h[1].null_loglik == pytest.approx(
+        vr.viterbi_null(target, enc, base=5).loglik, abs=1e-3)
+    assert h[1].path == ora.path
+    assert h[1].lrt < h[2].lrt
+
+
+def test_last_scores_cover_classes_in_input_order(db):
+    """Reads of three classes scanned together give the pass-1 rows of
+    each read scanned alone, in input order."""
+    reads = _iupac_reads(db)
+    # no survivors: pass 1 only
+    eng = pse.ScanEngine(db, pse.ScanParams(lrt_threshold=1e9),
+                         device="cpu")
+    eng.scan([pse.SeqRecord(i, f"r{i}", r) for i, r in enumerate(reads)])
+    alt, null = eng.last_scores
+    assert alt.shape == (len(reads), db.nprofiles)
+    for i, r in enumerate(reads):
+        eng.scan([pse.SeqRecord(0, "one", r)])
+        one_alt, one_null = eng.last_scores
+        np.testing.assert_allclose(alt[i], one_alt[0], atol=1e-6)
+        np.testing.assert_allclose(null[i], one_null[0], atol=1e-6)
+
+
+def test_extended_blocks_freed_after_scan(db, monkeypatch):
+    """Each extended block is built for one launch and is gone once the
+    scan returns; the base-4 blocks stay."""
+    import gc
+    import weakref
+
+    built = []
+    orig = vc.CudaBlock.from_profiles.__func__
+
+    def spy(cls, profiles, kpad=None, device="cuda", codes=()):
+        blk = orig(cls, profiles, kpad, device, codes)
+        if codes:
+            built.append((codes, weakref.ref(blk.fm)))
+        return blk
+
+    monkeypatch.setattr(vc.CudaBlock, "from_profiles", classmethod(spy))
+    reads = _iupac_reads(db)
+    classes = {encode_extended(r)[1] for r in reads} - {()}
+    eng = pse.ScanEngine(db, pse.ScanParams(lrt_threshold=1e9),
+                         device="cpu")
+    eng.scan([pse.SeqRecord(i, f"r{i}", r) for i, r in enumerate(reads)])
+    gc.collect()
+    assert len(classes) == 3
+    assert {c for c, _ in built} == classes
+    assert len(built) == len(classes) * len(eng.blocks)
+    assert all(ref() is None for _, ref in built)
+    assert all(b.packed is not None for b in eng.blocks)
+
+
+def test_unknown_algo_raises(db):
+    with pytest.raises(ValueError, match="algo"):
+        pse.ScanEngine(db, pse.ScanParams(algo="posterior"), device="cpu")
 
 
 def test_blocks_cover_db_once(db):

@@ -3,7 +3,9 @@
 deciphon_tpu_torch/ops/tables.synth_fragment_tables must reproduce
 models/frame.fragment_table (host f64) and deciphon_tpu's on-device
 synthesis up to f32 rounding: atol 2e-5, the tolerance of
-tests/test_tables.py:47.  CudaBlock.from_profiles must give the packed
+tests/test_tables.py:47; its extended (IUPAC) tables must reproduce
+frame.fragment_table_codes and ProteinProfile.fragment_tables(codes=...)
+within the same tolerance.  CudaBlock.from_profiles must give the packed
 layout of pack_numpy_block on the host tables.
 """
 
@@ -61,7 +63,53 @@ def test_from_profiles_matches_host_pack():
     profiles = [sample_profile(s + 1, (s % 5) + 2) for s in range(10)]
     host = vc.pack_numpy_block(vt.build_profile_block(profiles, kpad=8))
     dev = vc.CudaBlock.from_profiles(profiles, kpad=8, device="cpu")
-    assert dev.fm.shape == host.fm.shape == (10, vc.NTAB, vc.LANE)
+    assert dev.fm.shape == host.fm.shape == (10, 1365, vc.LANE)
+    for got, want in ((dev.fm, host.fm), (dev.fin, host.fin)):
+        live = want > vt.NEG / 2
+        np.testing.assert_allclose(got[live], want[live], atol=ATOL)
+        assert torch.all(got[~live] <= vt.NEG / 2)
+    assert torch.equal(dev.trans, host.trans)
+
+
+CODE_SETS = [("N",), ("N", "R"), ("B", "D", "H")]
+NTAB_OF = {("N",): 3906, ("N", "R"): 9331, ("B", "D", "H"): 19608}
+
+
+@pytest.mark.parametrize("codes", CODE_SETS)
+@pytest.mark.parametrize("eps", [0.01, 0.1])
+def test_ext_synth_matches_host(codes, eps):
+    """Extended tables from codon probabilities [64] + q [5] vs the host
+    f64 frame.fragment_table_codes, every row incl. the sentinel."""
+    rng = np.random.default_rng(len(codes))
+    lcodon = np.log(rng.dirichlet(np.ones(64), size=5))
+    q = frame.q5_pad(frame.nuclt_lprob_from_codon(lcodon))
+    host = frame.fragment_table_codes(lcodon, q, eps, codes)
+    got = tables.synth_fragment_tables(
+        torch.from_numpy(np.exp(lcodon).astype(np.float32)),
+        torch.from_numpy(np.exp(q).astype(np.float32)), eps, codes,
+        row_chunk=2,
+    ).numpy()
+    assert got.shape == host.shape == (5, NTAB_OF[codes])
+    finite = np.isfinite(host)
+    np.testing.assert_allclose(got[finite], host[finite], atol=ATOL)
+    assert np.all(got[~finite] == vt.NEG)
+    assert np.all(got[:, -1] == vt.NEG)
+
+
+@pytest.mark.parametrize("codes", CODE_SETS)
+def test_ext_from_profiles_matches_fragment_tables(codes):
+    """CudaBlock.from_profiles(codes=...) vs the packed host block of
+    ProteinProfile.fragment_tables(codes=...) (the base-5 marginal path
+    for ("N",), the codon path for the others)."""
+    profiles = [sample_profile(s + 3, (s % 4) + 2) for s in range(5)]
+    host = vc.pack_numpy_block(
+        vt.build_profile_block(profiles, kpad=6, codes=codes)
+    )
+    dev = vc.CudaBlock.from_profiles(profiles, kpad=6, device="cpu",
+                                     codes=codes)
+    ntab = NTAB_OF[codes]
+    assert dev.fm.shape == host.fm.shape == (5, ntab, vc.LANE)
+    assert dev.fin.shape == host.fin.shape == (5, 2, ntab)
     for got, want in ((dev.fm, host.fm), (dev.fin, host.fin)):
         live = want > vt.NEG / 2
         np.testing.assert_allclose(got[live], want[live], atol=ATOL)

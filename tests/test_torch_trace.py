@@ -65,3 +65,34 @@ def test_walk_covers_read():
     prof, seq = cases()[1]
     (res,) = ptr.viterbi_alt_batch([prof], [DNA.encode(seq)])
     assert sum(l for _, l in res.path) == len(seq)
+
+
+@pytest.mark.parametrize("codes", [("N",), ("N", "R")])
+def test_paths_with_codes_match_jax_batch(codes):
+    """Reads holding IUPAC codes trace on the extended tables: paths
+    identical to vtr.viterbi_alt_batch(codes=...) and the f64 oracle,
+    match strings identical."""
+    from deciphon_tpu.models.alphabet import encode_extended
+
+    rng = np.random.default_rng(len(codes))
+    profs, reads = [], []
+    for trial in range(5):
+        profs.append(sample_profile(trial + 11, int(rng.integers(2, 9))))
+        r = list(rng.choice(list("ACGT"), int(rng.integers(8, LP))))
+        r[trial % 4] = codes[0]
+        r[-2] = codes[-1]
+        reads.append("".join(r))
+    encs = []
+    for r in reads:
+        enc, got = encode_extended(r)
+        assert got == codes
+        encs.append(enc)
+    got = ptr.viterbi_alt_batch(profs, encs, kpad=8, codes=codes)
+    ref = jtr.viterbi_alt_batch(profs, encs, kpad=8, pad_to=LP, codes=codes)
+    for g, r, prof, seq, enc in zip(got, ref, profs, reads, encs):
+        assert g.path == r.path
+        assert g.loglik == pytest.approx(r.loglik, abs=1e-4)
+        assert codec.render_match(codec.match_steps(prof, seq, g.path)) == (
+            codec.render_match(codec.match_steps(prof, seq, r.path))
+        )
+        assert g.path == vr.viterbi_alt(prof, enc, codes=codes).path
