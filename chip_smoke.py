@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the deciphon_tpu_torch scan path (one NVIDIA GPU).
 
-    python3 chip_smoke.py    # needs one CUDA card; ~5 min on an H100
+    python3 chip_smoke.py    # needs one CUDA card; ~6 min on an H100
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit) and the kernel build
@@ -21,9 +21,26 @@ Phases, each fatal on failure:
      the semiring's kernel must have been launched once per block and
      read class, every pass-1 cell of every class must equal the plain
      version, and no jax may be loaded.  Kernel-vs-plain times per class,
-     warm scan seconds and GCUPS are timed with CUDA events.
+     warm scan seconds and GCUPS are timed with CUDA events, and each
+     kernel's bound (the larger of its bytes over 3.35 TB/s and its f32
+     operations over 67 TFLOP/s, the operations of expf and log1pf
+     counted from their SASS) is computed from the same inputs;
+  4. the profile-sharded engine on the same DB and reads: a mesh over
+     every visible card, or on one card ["cuda:0"] * 4 as 2 read shards x
+     2 profile shards.  Viterbi and forward scans and best hits: every
+     pass-1 cell of every class must equal the unsharded engine's bit for
+     bit, the hits and best-hit winners must be identical, and the
+     kernel must have been launched tiles x blocks x classes times;
+  5. the scheduler daemon, Server(device="cuda"), against the port's
+     FakeScheduler on localhost: a press job of the same .hmm (the
+     uploaded .dtp must equal the CLI's byte for byte), a scan job of the
+     288 reads and a DCP_BEST_HIT=1 scan job, whose products must equal
+     phase 3's in-process hits (logliks within 1e-4 + 1e-6 * |x|) and
+     best hits; every planted read must hit, and the kernel must have
+     been launched.  A failed job is fatal.
 The last two lines are the card line and a JSON {"ok": true, ...}; the
-line before them is the JSON kernel table.
+line before them is the JSON kernel table, which lists per kernel the
+launches of each path (scan, sharded, daemon) beside phase 3's.
 """
 
 from __future__ import annotations
@@ -60,6 +77,18 @@ NREADS = 256  # ACGT reads
 NPLANTED = 8  # of them consensus reads of known profiles
 N_READS, N_PLANTED = 24, 8  # reads with N; consensus reads with one N
 NR_READS, NR_PLANTED = 8, 2  # reads with N and R; planted ones
+# the card's published peaks (H100 SXM data sheet, 700 W): HBM bytes/s
+# and f32 operations/s outside the tensor cores
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# f32 operations of the recurrence per (node, position), counted from
+# csrc/viterbi.cu: 18 adds and one NEG clamp (an fmaxf), and 16 joins
+# (8 of the match/insert in-flow, 1 D-chain prefix, 1 shifted prefix,
+# 2 for VE, 2 in the core out-flow, 2 in the ring writes); a max join is
+# one fmaxf, a logsumexp join 4 operations (max, -inf test, subtract,
+# add) plus the SASS of one expf and one log1pf
+ADDS_CLAMP, JOINS = 19, 16
+# the paths of phases 3-5, in the kernel table's "paths"
+PATHS = ("scan", "sharded", "daemon")
 
 
 def card_line() -> str:
@@ -87,7 +116,7 @@ def encode(read: str, codes: tuple) -> np.ndarray:
 
 
 def eidx_of(reads, pad_to: int, codes: tuple = ()):
-    from deciphon_tpu.ops.emissions import fragment_indices
+    from deciphon_tpu_torch.ops.emissions import fragment_indices
     from deciphon_tpu_torch.ops.viterbi_torch import end_fragment_indices
 
     base = 4 + len(codes)
@@ -118,7 +147,7 @@ def phase_kernel_menu(dev) -> dict:
     """Worst |kernel - plain| per semiring over the menu."""
     import torch
 
-    from deciphon_tpu.models.profile import sample_profile
+    from deciphon_tpu_torch.models.profile import sample_profile
     from deciphon_tpu_torch.ops import viterbi_cuda as vc
     from deciphon_tpu_torch.ops.viterbi_torch import NEG
 
@@ -182,7 +211,7 @@ def ragged_core_sizes(rng) -> np.ndarray:
 
 
 def consensus_dna(prof) -> str:
-    from deciphon_tpu.models.alphabet import STANDARD_CODE
+    from deciphon_tpu_torch.models.alphabet import STANDARD_CODE
 
     return "".join(
         STANDARD_CODE.codon_str(b // 16, (b // 4) % 4, b % 4)
@@ -219,6 +248,93 @@ def timed_ms(fn, reps: int = 1) -> float:
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end))
     return best
+
+
+PROBE_CU = r"""
+extern "C" __global__ void k_base(float* x) {
+  x[threadIdx.x] = x[threadIdx.x] + 1.0f;
+}
+extern "C" __global__ void k_expf(float* x) {
+  x[threadIdx.x] = expf(x[threadIdx.x]) + 1.0f;
+}
+extern "C" __global__ void k_log1pf(float* x) {
+  x[threadIdx.x] = log1pf(x[threadIdx.x]) + 1.0f;
+}
+"""
+
+
+def sass_ops(workdir: str) -> dict[str, int]:
+    """SASS instructions of one expf and one log1pf as the kernel's build
+    compiles them (sm_90a, -O3, no fast math): each probe kernel's count
+    up to its last EXIT, less the bare load-add-store kernel's."""
+    from deciphon_tpu_torch.ops import _build
+
+    src = os.path.join(workdir, "probe.cu")
+    cubin = os.path.join(workdir, "probe.cubin")
+    with open(src, "w") as fp:
+        fp.write(PROBE_CU)
+    nvcc = _build._nvcc()
+    subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-O3", "-o", cubin, src], check=True, capture_output=True)
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
+        check=True, capture_output=True, text=True,
+    ).stdout
+    counts, name, body = {}, None, []
+
+    def close():
+        if name is not None:
+            ends = [j for j, op in enumerate(body) if op == "EXIT"]
+            counts[name] = ends[-1] + 1 if ends else 0
+
+    for line in sass.splitlines():
+        if "Function :" in line:
+            close()
+            name, body = line.split("Function :")[1].strip(), []
+        elif name is not None and line.strip().startswith("/*") and ";" in line:
+            op = line.split("*/", 1)[1].strip().split(";")[0].split()
+            if op and op[0].startswith("@"):
+                op = op[1:]
+            if op:
+                body.append(op[0])
+    close()
+    base = counts.get("k_base", 0)
+    out = {f: counts.get(f"k_{f}", 0) - base for f in ("expf", "log1pf")}
+    if base <= 0 or min(out.values()) <= 0:
+        raise SystemExit(f"SASS probe found no instructions: {counts}")
+    return out
+
+
+def ops_per_node(semiring: str, sass: dict) -> int:
+    """f32 operations of the recurrence per (node, position)."""
+    join = 1 if semiring == "max" else 4 + sass["expf"] + sass["log1pf"]
+    return ADDS_CLAMP + JOINS * join
+
+
+def bound(nbytes: int, node_pos: int, semiring: str, sass: dict):
+    """(bound ms, "bytes" or "operations") of launches that move
+    ``nbytes`` and compute ``node_pos`` (node, position) cells."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = node_pos * ops_per_node(semiring, sass) / PEAK_F32
+    return 1e3 * max(t_bytes, t_ops), (
+        "bytes" if t_bytes >= t_ops else "operations")
+
+
+def launch_work(blk, eidx, slen) -> tuple[int, int]:
+    """(bytes, (node, position) cells) of one launch: each table, read
+    and output byte once; every padded node at every read position."""
+    B, _, K = blk.fm.shape
+    S = eidx.shape[0]
+    nbytes = 4 * (blk.fm.numel() + blk.fin.numel() + blk.trans.numel()
+                  + eidx.numel() + slen.numel() + 3 * S + 2 * S * B)
+    return nbytes, int(slen.sum()) * B * K
+
+
+def reset_launches() -> None:
+    from deciphon_tpu_torch.ops import viterbi_cuda as vc
+
+    for k in vc.LAUNCHES:
+        vc.LAUNCHES[k] = 0
 
 
 def mixed_reads(rng, db):
@@ -263,13 +379,14 @@ def check_planted(hit_pairs: set, planted: dict, what: str) -> None:
     print(f"{what}: all {len(planted)} planted reads hit")
 
 
-def phase_main_path(dev, workdir: str) -> dict:
-    """Per semiring: (launches, max_abs_err, ms, plain_ms) of the main
-    path."""
+def phase_main_path(dev, workdir: str, sass: dict):
+    """(per semiring: launches, max_abs_err, ms, plain_ms, bound_ms,
+    bound_by of the main path; the context phases 4 and 5 compare
+    with)."""
     import torch
 
-    from deciphon_tpu.db.format import TensorDB
-    from deciphon_tpu.models.h3writer import random_h3, write_h3
+    from deciphon_tpu_torch.db.format import TensorDB
+    from deciphon_tpu_torch.models.h3writer import random_h3, write_h3
     from deciphon_tpu_torch.ops import viterbi_cuda as vc
     from deciphon_tpu_torch.ops.scan_engine import (
         ScanEngine, ScanParams, SeqRecord,
@@ -298,6 +415,8 @@ def phase_main_path(dev, workdir: str) -> dict:
     nodes = int(db.core_sizes.sum())
     cells = 3 * sum(map(len, reads)) * nodes
     out = {}
+    ctx = dict(db=db, seqs=seqs, planted=planted, hmm=hmm, dtp=dtp,
+               cells=cells, scores={}, warm={})
     for semiring in TOL:
         algo = ALGO[semiring]
         print(f"--- main path, {algo} ({semiring}) ---")
@@ -317,8 +436,7 @@ def phase_main_path(dev, workdir: str) -> dict:
         print(f"engine: {len(engine.blocks)} blocks, base-4 tables built in "
               f"{time.perf_counter() - t0:.2f} s")
         encoded, classes = engine.encode(seqs)
-        for k in vc.LAUNCHES:
-            vc.LAUNCHES[k] = 0
+        reset_launches()
         hits = engine.scan(seqs)
         launches = dict(vc.LAUNCHES)
         want = len(engine.blocks) * len(classes)
@@ -338,10 +456,16 @@ def phase_main_path(dev, workdir: str) -> dict:
         print(f"engine scan: {launches[semiring]} {KERNEL_NAME[semiring]} "
               f"launches = {len(engine.blocks)} blocks x {len(classes)} "
               "classes")
+        ctx["scores"][semiring] = engine.last_scores
+        ctx["classes"] = len(classes)
+        if semiring == "max":
+            ctx["hits"] = hits
+            ctx["best"] = engine.best_hits(seqs)
 
         # every pass-1 cell of that run against the plain version, and
         # kernel vs plain times, class by class
         worst = kernel_ms = plain_ms = 0.0
+        nbytes = node_pos = 0
         for codes in sorted(classes):
             ids = classes[codes]
             order, eidx, slen = engine.batch([encoded[si] for si in ids],
@@ -365,6 +489,14 @@ def phase_main_path(dev, workdir: str) -> dict:
 
             p_ms = timed_ms(run_plain)
             k_ms = timed_ms(run_kernel, reps=3)
+            c_bytes = c_cells = 0
+            for blk in blks:
+                b_, c_ = launch_work(blk, eidx, slen)
+                c_bytes += b_
+                c_cells += c_
+            c_bound, c_by = bound(c_bytes, c_cells, semiring, sass)
+            nbytes += c_bytes
+            node_pos += c_cells
             d_cls = 0.0
             for b, (pa, pn) in zip(engine.blocks, plains):
                 for got_, want_ in ((alt, pa), (null, pn)):
@@ -380,7 +512,10 @@ def phase_main_path(dev, workdir: str) -> dict:
                   f"{blks[0].fm.shape[1]}): {len(ids) * NPROF} cells x "
                   f"(alt, null) equal plain, max|d| {d_cls:.3g}; kernel "
                   f"{k_ms:.3f} ms vs plain {p_ms:.3f} ms over "
-                  f"{len(blks)} blocks; tables {build_s:.3f} s (host clock)")
+                  f"{len(blks)} blocks; tables {build_s:.3f} s (host clock); "
+                  f"bound {c_bound:.3f} ms by {c_by} ({c_bytes} B, "
+                  f"{c_cells} node-positions), kernel at "
+                  f"{100 * c_bound / k_ms:.1f}% of it")
             worst = max(worst, d_cls)
             kernel_ms += k_ms
             plain_ms += p_ms
@@ -393,6 +528,7 @@ def phase_main_path(dev, workdir: str) -> dict:
             ms = timed_ms(lambda: engine.scan(seqs))
             scan_s.append((ms / 1e3, time.perf_counter() - t0))
         warm = min(s for s, _ in scan_s)
+        ctx["warm"][semiring] = warm
         tm = engine.last_timings
         print(f"warm scan phases (host clock, last run): pass 1 "
               f"{tm['pass1']:.4f} s (incl. extended tables), gate "
@@ -402,11 +538,191 @@ def phase_main_path(dev, workdir: str) -> dict:
               f"(host clock {min(h for _, h in scan_s):.4f} s), "
               f"{cells / warm / 1e9:.2f} GCUPS (3 x sum len x sum core, "
               f"{len(reads)} reads)")
+        bound_ms, bound_by = bound(nbytes, node_pos, semiring, sass)
+        print(f"bound {KERNEL_NAME[semiring]}: {bound_ms:.3f} ms by "
+              f"{bound_by} ({ops_per_node(semiring, sass)} f32 ops per "
+              f"node-position); kernel {kernel_ms:.3f} ms, "
+              f"{100 * bound_ms / kernel_ms:.1f}% of the bound")
         out[semiring] = dict(launches=launches[semiring], max_abs_err=worst,
-                             ms=kernel_ms, plain_ms=plain_ms)
+                             ms=kernel_ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=None)
+        del engine
+        torch.cuda.empty_cache()
+    return out, ctx
+
+
+def scan_mesh():
+    """(mesh, kind): every visible card, or on one card 2 read shards x
+    2 profile shards of cuda:0."""
+    import torch
+
+    from deciphon_tpu_torch.parallel.mesh import make_scan_mesh
+
+    n = torch.cuda.device_count()
+    if n > 1:
+        mesh = make_scan_mesh()
+        return mesh, f"{n} cards"
+    mesh = make_scan_mesh(profile_axis=2, seq_axis=2,
+                          devices=["cuda:0"] * 4)
+    return mesh, "one card, cuda:0 repeated"
+
+
+def phase_sharded(ctx) -> dict:
+    """Per semiring: launches of the sharded scans."""
+    import torch
+
+    from deciphon_tpu_torch.ops import viterbi_cuda as vc
+    from deciphon_tpu_torch.ops.scan_engine import ScanEngine, ScanParams
+
+    db, seqs = ctx["db"], ctx["seqs"]
+    mesh, kind = scan_mesh()
+    print(f"mesh: {mesh.seqs} read shards x {mesh.profiles} profile shards "
+          f"({kind})")
+    out = {}
+    for semiring in TOL:
+        algo = ALGO[semiring]
+        engine = ScanEngine(db, ScanParams(algo=algo), mesh=mesh)
+        t0 = time.perf_counter()
+        engine.prepare()
+        torch.cuda.synchronize()
+        ntiles = sum(len(b.tiles) for b in engine.blocks)
+        print(f"sharded {algo}: {len(engine.blocks)} blocks, {ntiles} tiles, "
+              f"base-4 tables built in {time.perf_counter() - t0:.2f} s")
+        reset_launches()
+        hits = engine.scan(seqs)
+        launches = dict(vc.LAUNCHES)
+        want = ntiles * ctx["classes"]
+        other = sum(n for s, n in launches.items() if s != semiring)
+        if launches[semiring] != want or other:
+            raise SystemExit(f"sharded launches {launches}: want {want} "
+                             f"{semiring} (tiles x classes)")
+        print(f"sharded scan: {want} {KERNEL_NAME[semiring]} launches = "
+              f"{ntiles} tiles over {len(engine.blocks)} blocks x "
+              f"{ctx['classes']} classes")
+        for name, got, ref in zip(("alt", "null"), engine.last_scores,
+                                  ctx["scores"][semiring]):
+            if not np.array_equal(got, ref):
+                d = float(np.abs(got - ref).max())
+                raise SystemExit(f"sharded {algo} {name} differs from "
+                                 f"unsharded: max|d| {d}")
+        print(f"sharded {algo}: all {got.size} pass-1 cells x (alt, null) "
+              "equal the unsharded engine's bit for bit")
+        check_planted({(h.seq_id, h.profile_idx) for h in hits},
+                      ctx["planted"], f"sharded {algo} ({len(hits)} hits)")
+        if semiring == "max":
+            if [(h.seq_id, h.profile_idx, h.match) for h in hits] != [
+                (h.seq_id, h.profile_idx, h.match) for h in ctx["hits"]
+            ]:
+                raise SystemExit("sharded hits differ from unsharded")
+            best = engine.best_hits(seqs)
+            if best != ctx["best"]:
+                raise SystemExit("sharded best hits differ from unsharded")
+            print(f"sharded best hits: {len(best)} winners identical")
+        warm = min(timed_ms(lambda: engine.scan(seqs)) / 1e3
+                   for _ in range(2))
+        print(f"warm scan {algo} (min of 2, CUDA events): sharded "
+              f"{warm:.4f} s vs unsharded {ctx['warm'][semiring]:.4f} s, "
+              f"{ctx['cells'] / warm / 1e9:.2f} GCUPS")
+        out[semiring] = launches[semiring]
         del engine
         torch.cuda.empty_cache()
     return out
+
+
+def phase_daemon(ctx, workdir: str) -> dict:
+    """Per semiring: launches of the daemon's scan jobs."""
+    from deciphon_tpu_torch.ops import viterbi_cuda as vc
+    from deciphon_tpu_torch.server.daemon import Server
+    from deciphon_tpu_torch.server.fake_sched import FakeScheduler
+    from deciphon_tpu_torch.utils.config import ServerConfig
+
+    db, seqs, planted = ctx["db"], ctx["seqs"], ctx["planted"]
+    fake = FakeScheduler(spool_dir=os.path.join(workdir, "sched"))
+    url = fake.serve()
+    launches = dict.fromkeys(TOL, 0)
+    try:
+        cfg = ServerConfig(cache_dir=os.path.join(workdir, "daemon"),
+                           api_url=url, single_run=True)
+        server = Server(cfg, device="cuda")
+
+        def run_job(job_id: int, what: str) -> float:
+            t0 = time.perf_counter()
+            if not server.run_one():
+                raise SystemExit(f"daemon {what}: no job ran")
+            job = fake.jobs[job_id]
+            if job.state != "done":
+                raise SystemExit(f"daemon {what} job {job.state}: "
+                                 f"{job.error}")
+            return time.perf_counter() - t0
+
+        with open(ctx["hmm"], "rb") as fp:
+            hmm = fake.add_hmm("pfam_shaped.hmm", fp.read())
+        press_s = run_job(hmm.job_id, "press")
+        t0 = time.perf_counter()
+        server._join_prewarm()
+        prewarm_s = time.perf_counter() - t0
+        db_meta = next(iter(fake.dbs.values()))
+        with open(fake.files[db_meta.filename], "rb") as a, \
+                open(ctx["dtp"], "rb") as b:
+            if a.read() != b.read():
+                raise SystemExit("daemon .dtp differs from the CLI's")
+        print(f"daemon press: {press_s:.2f} s, then {prewarm_s:.2f} s more "
+              "for the prewarm thread (host clock); .dtp equals the CLI's "
+              "byte for byte")
+
+        records = [(s.name, s.data) for s in seqs]
+        rows_of = {}
+        for mode in ("scan", "best-hit"):
+            if mode == "best-hit":
+                os.environ["DCP_BEST_HIT"] = "1"
+            try:
+                scan = fake.add_scan(db_meta.id, records)
+                reset_launches()
+                job_s = run_job(scan.job_id, mode)
+                for k, n in vc.LAUNCHES.items():
+                    launches[k] += n
+            finally:
+                os.environ.pop("DCP_BEST_HIT", None)
+            if vc.LAUNCHES["max"] == 0:
+                raise SystemExit(f"daemon {mode}: no kernel launch")
+            # the scheduler numbers this scan's reads in input order
+            index = {q.id: i for i, q in enumerate(fake.seqs[scan.id])}
+            rows_of[mode] = [
+                (index[int(r[1])], r[2], float(r[4]), float(r[5]), r[8])
+                for r in (ln.split("\t")
+                          for ln in fake.products[-1].splitlines()[1:])
+            ]
+            print(f"daemon {mode}: {job_s:.2f} s (host clock), "
+                  f"{len(rows_of[mode])} rows, {vc.LAUNCHES['max']} "
+                  f"{KERNEL_NAME['max']} launches")
+        acc = [db.profile(i).accession for i in range(db.nprofiles)]
+        want = {
+            "scan": [(h.seq_idx, h.accession, h.alt_loglik, h.null_loglik,
+                      h.match) for h in ctx["hits"]],
+            "best-hit": [
+                (b.seq_id - 1, b.accession, b.alt_loglik, b.null_loglik, "")
+                for b in ctx["best"] if b.lrt >= cfg.scan_lrt_threshold
+            ],
+        }
+        for mode, rows in rows_of.items():
+            ref = want[mode]
+            if [(r[0], r[1], r[4]) for r in rows] != [
+                (r[0], r[1], r[4]) for r in ref
+            ]:
+                raise SystemExit(f"daemon {mode} rows differ from the "
+                                 "in-process engine's")
+            for r, w in zip(rows, ref):
+                for got, exp in zip(r[2:4], w[2:4]):
+                    if abs(got - exp) > 1e-4 + 1e-6 * abs(exp):
+                        raise SystemExit(f"daemon {mode} loglik {got} vs "
+                                         f"{exp}")
+            check_planted({(r[0] + 1, acc.index(r[1])) for r in rows},
+                          planted, f"daemon {mode} ({len(rows)} rows)")
+        print("daemon products equal the in-process hits and best hits")
+    finally:
+        fake.shutdown()
+    return launches
 
 
 def main() -> int:
@@ -435,18 +751,32 @@ def main() -> int:
                            "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     try:
-        main_path = phase_main_path(dev, workdir)
+        sass = sass_ops(workdir)
+        print(f"SASS: expf {sass['expf']}, log1pf {sass['log1pf']} "
+              "instructions; f32 ops per node-position: "
+              + ", ".join(f"{KERNEL_NAME[s]} {ops_per_node(s, sass)}"
+                          for s in TOL))
+        main_path, ctx = phase_main_path(dev, workdir, sass)
+        print(f"main path done at {time.perf_counter() - t_start:.1f} s")
+        sharded = phase_sharded(ctx)
+        print(f"sharded done at {time.perf_counter() - t_start:.1f} s")
+        daemon = phase_daemon(ctx, workdir)
+        print(f"daemon done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    print(f"main path done at {time.perf_counter() - t_start:.1f} s")
-    if "jax" in sys.modules:
-        raise SystemExit("jax was imported")
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "deciphon_tpu"))
+    if bad:
+        raise SystemExit(f"imported {bad}")
     kernels = []
     for semiring, rec in main_path.items():
         rec["max_abs_err"] = max(rec["max_abs_err"], menu_err[semiring])
+        per_path = dict(zip(PATHS, (rec["launches"], sharded[semiring],
+                                    daemon[semiring])))
         kernels.append({
             "name": KERNEL_NAME[semiring], "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES, **rec,
+            "paths": {k: n for k, n in per_path.items() if n},
         })
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")

@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -27,6 +28,7 @@ NVCC_FLAGS = (
 )
 
 _LIB = None
+_LOCK = threading.Lock()  # a prewarm thread may build beside a scan
 BUILD_LOG = ""  # nvcc's output of the last build (ptxas register report)
 BUILD_SECONDS = 0.0  # wall time of the last build (0 when it was reused)
 
@@ -44,6 +46,11 @@ def _nvcc() -> str:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
+    with _LOCK:
+        return _library()
+
+
+def _library() -> ctypes.CDLL:
     global _LIB, BUILD_LOG, BUILD_SECONDS
     if _LIB is not None:
         return _LIB

@@ -29,7 +29,7 @@ import functools
 import numpy as np
 import torch
 
-from deciphon_tpu.models.frame import (
+from deciphon_tpu_torch.models.frame import (
     IUPAC_SUBSETS,
     TERMS,
     _enumerate_frags,

@@ -118,9 +118,9 @@ def pack_trans(arrs: dict[str, np.ndarray]) -> np.ndarray:
 
 
 def pack_numpy_block(block) -> CudaBlock:
-    """CPU CudaBlock from a host ProfileBlock (this package's or
-    deciphon_tpu's viterbi_jax one: numpy fields fm [B, K, ntab], fi, fn
-    and the [B, K] transitions), padded to a LANE multiple of nodes."""
+    """CPU CudaBlock from a host ProfileBlock (viterbi_torch's: numpy
+    fields fm [B, K, ntab], fi, fn and the [B, K] transitions), padded
+    to a LANE multiple of nodes."""
     fm = np.asarray(block.fm, np.float32)
     B, K, ntab = fm.shape
     Kp = pad_width(K)

@@ -18,8 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from deciphon_tpu.models.frame import frag_layout
-from deciphon_tpu.models.profile import ProteinProfile
+from deciphon_tpu_torch.models.frame import frag_layout
+from deciphon_tpu_torch.models.profile import ProteinProfile
 
 NEG = -1e30  # effective -inf that stays NaN-free through the D-chain sums
 

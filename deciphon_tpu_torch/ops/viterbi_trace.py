@@ -19,9 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from deciphon_tpu.models import state as st
-from deciphon_tpu.ops import viterbi_ref as vr
-from deciphon_tpu.ops.emissions import fragment_indices
+from deciphon_tpu_torch.models import state as st
+from deciphon_tpu_torch.ops import viterbi_ref as vr
+from deciphon_tpu_torch.ops.emissions import fragment_indices
 from deciphon_tpu_torch.ops.viterbi_torch import (
     NEG,
     ProfileBlock,

@@ -8,12 +8,24 @@ apart from the logliks, which agree within 1e-4 (Viterbi) or 2e-3
 
 import numpy as np
 import pytest
+import torch
 
 from deciphon_tpu.cli.main import main as jax_main
-from deciphon_tpu.db.format import TensorDB
-from deciphon_tpu.models.alphabet import STANDARD_CODE
-from deciphon_tpu.models.h3writer import random_h3, write_h3
 from deciphon_tpu_torch.cli.main import main as torch_main
+from deciphon_tpu_torch.db.format import TensorDB
+from deciphon_tpu_torch.models.alphabet import STANDARD_CODE
+from deciphon_tpu_torch.models.h3writer import random_h3, write_h3
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the suite runs several workers at
+    once, and torch's default of one thread per core oversubscribes the
+    cores many times over (these tensors are small)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -76,6 +88,7 @@ def test_scan_rows_match_jax_cli(recipe, flags, capsys):
 def test_cli_forward_flag(recipe, flags, capsys):
     """scan --forward writes forward logliks (the f64 forward oracle's,
     within 2e-3) with the Viterbi-path match strings of the JAX CLI."""
+    from deciphon_tpu.db.format import TensorDB as JaxTensorDB
     from deciphon_tpu.models.alphabet import DNA
     from deciphon_tpu.ops import viterbi_ref as vr
 
@@ -85,7 +98,7 @@ def test_cli_forward_flag(recipe, flags, capsys):
     planted = [r for r in have if (r[1], r[2]) == ("1", acc)]
     assert planted
     read = fasta.read_text().splitlines()[1]
-    prof = TensorDB.load(str(dtp)).profile(2)
+    prof = JaxTensorDB.load(str(dtp)).profile(2)
     assert float(planted[0][4]) == pytest.approx(
         vr.forward_alt(prof, DNA.encode(read)), abs=2e-3
     )
@@ -109,7 +122,7 @@ def test_info_and_errors(recipe, capsys):
     assert "profiles:   4" in capsys.readouterr().out
     # missing db -> EIO exit; an IUPAC read scans (exit 0); a letter
     # that is no IUPAC code -> EINVAL exit
-    from deciphon_tpu.utils.rc import RC
+    from deciphon_tpu_torch.utils.rc import RC
 
     assert torch_main(["scan", str(tmp / "nope.dtp"), str(fasta),
                        "--device", "cpu"]) == int(RC.EIO)

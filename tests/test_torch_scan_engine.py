@@ -10,15 +10,30 @@ freeing of extended tables and the errors of bad inputs.
 
 import numpy as np
 import pytest
+import torch
 
-from deciphon_tpu.db.format import TensorDB, write_db
-from deciphon_tpu.models.alphabet import DNA, STANDARD_CODE, encode_extended
-from deciphon_tpu.models.h3reader import press_file
-from deciphon_tpu.models.h3writer import random_h3, write_h3
+from deciphon_tpu.db.format import TensorDB as JaxTensorDB
 from deciphon_tpu.ops import scan_engine as jse
 from deciphon_tpu.ops import viterbi_ref as vr
+from deciphon_tpu_torch.db.format import TensorDB, write_db
+from deciphon_tpu_torch.models.alphabet import (
+    DNA, STANDARD_CODE, encode_extended,
+)
+from deciphon_tpu_torch.models.h3reader import press_file
+from deciphon_tpu_torch.models.h3writer import random_h3, write_h3
 from deciphon_tpu_torch.ops import scan_engine as pse
 from deciphon_tpu_torch.ops import viterbi_cuda as vc
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the suite runs several workers at
+    once, and torch's default of one thread per core oversubscribes the
+    cores many times over (these tensors are small)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def consensus_dna(prof):
@@ -40,6 +55,12 @@ def db(tmp_path_factory):
     dbp = str(tmp / "synth.dtp")
     write_db(dbp, press_file(str(hmm)))
     return TensorDB.load(dbp)
+
+
+@pytest.fixture(scope="module")
+def jdb(db):
+    """The same file through the JAX package, for the reference side."""
+    return JaxTensorDB.load(db.path)
 
 
 def _reads(db):
@@ -69,7 +90,9 @@ def _iupac_reads(db):
 
 
 def _both(db, reads, **params):
-    ref = jse.ScanEngine(db, jse.ScanParams(**params)).scan(
+    ref = jse.ScanEngine(
+        JaxTensorDB.load(db.path), jse.ScanParams(**params)
+    ).scan(
         [jse.SeqRecord(i + 1, f"r{i}", r) for i, r in enumerate(reads)]
     )
     got = pse.ScanEngine(db, pse.ScanParams(**params), device="cpu").scan(
@@ -99,7 +122,7 @@ def test_hits_match_jax_engine(db, params):
         assert a.accession == b.accession
 
 
-def test_planted_hit_matches_oracle(db):
+def test_planted_hit_matches_oracle(db, jdb):
     target = db.profile(2)
     read = consensus_dna(target)
     eng = pse.ScanEngine(db, pse.ScanParams(lrt_threshold=10.0),
@@ -107,8 +130,8 @@ def test_planted_hit_matches_oracle(db):
     hits = eng.scan([pse.SeqRecord(1, "planted", read),
                      pse.SeqRecord(2, "random", "ACGTACGTACGTACGTACGTACGT")])
     h = next(h for h in hits if h.seq_id == 1 and h.profile_idx == 2)
-    ora = vr.viterbi_alt(target, DNA.encode(read))
-    orn = vr.viterbi_null(target, DNA.encode(read))
+    ora = vr.viterbi_alt(jdb.profile(2), DNA.encode(read))
+    orn = vr.viterbi_null(jdb.profile(2), DNA.encode(read))
     assert h.alt_loglik == pytest.approx(ora.loglik, abs=2e-3)
     assert h.null_loglik == pytest.approx(orn.loglik, abs=2e-3)
     assert sum(l for _, l in h.path) == len(read)
@@ -146,7 +169,7 @@ def _assert_same_hits(got, ref, tol):
 
 
 @pytest.mark.parametrize("threshold", [10.0, -1e9])
-def test_forward_hits_match_jax_engine(db, threshold):
+def test_forward_hits_match_jax_engine(db, jdb, threshold):
     """algo="forward": forward logliks, Viterbi paths and matches."""
     reads = _reads(db)
     got, ref = _both(db, reads, lrt_threshold=threshold, algo="forward")
@@ -154,7 +177,7 @@ def test_forward_hits_match_jax_engine(db, threshold):
     if threshold < 0:
         assert len(got) == len(reads) * db.nprofiles
         for h in got:  # forward mass >= the best path
-            best = vr.viterbi_alt(db.profile(h.profile_idx),
+            best = vr.viterbi_alt(jdb.profile(h.profile_idx),
                                   DNA.encode(reads[h.seq_idx]))
             assert h.alt_loglik >= best.loglik - 1e-3
     else:
@@ -171,11 +194,11 @@ def test_iupac_hits_match_jax_engine(db, algo, tol):
     _assert_same_hits(got, ref, tol)
 
 
-def test_planted_n_read_hits(db):
+def test_planted_n_read_hits(db, jdb):
     """N planted into a consensus read still hits its profile, scores as
     the base-5 oracle and below the concrete read
     (tests/test_scan_engine.py:129)."""
-    from deciphon_tpu.models.alphabet import encode_iupac
+    from deciphon_tpu_torch.models.alphabet import encode_iupac
 
     target = db.profile(2)
     read = consensus_dna(target)
@@ -186,10 +209,10 @@ def test_planted_n_read_hits(db):
     h = {h.seq_id: h for h in hits if h.profile_idx == 2}
     assert set(h) == {1, 2}
     enc = encode_iupac(noisy)
-    ora = vr.viterbi_alt(target, enc, base=5)
+    ora = vr.viterbi_alt(jdb.profile(2), enc, base=5)
     assert h[1].alt_loglik == pytest.approx(ora.loglik, abs=1e-3)
     assert h[1].null_loglik == pytest.approx(
-        vr.viterbi_null(target, enc, base=5).loglik, abs=1e-3)
+        vr.viterbi_null(jdb.profile(2), enc, base=5).loglik, abs=1e-3)
     assert h[1].path == ora.path
     assert h[1].lrt < h[2].lrt
 
@@ -237,7 +260,7 @@ def test_extended_blocks_freed_after_scan(db, monkeypatch):
     assert {c for c, _ in built} == classes
     assert len(built) == len(classes) * len(eng.blocks)
     assert all(ref() is None for _, ref in built)
-    assert all(b.packed is not None for b in eng.blocks)
+    assert all(b.tiles is not None for b in eng.blocks)
 
 
 def test_unknown_algo_raises(db):

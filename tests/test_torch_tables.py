@@ -14,10 +14,22 @@ import pytest
 import torch
 
 from deciphon_tpu.models import frame
-from deciphon_tpu.models.profile import sample_profile
 from deciphon_tpu.ops import tables as jtables
+from deciphon_tpu_torch.models.profile import sample_profile
 from deciphon_tpu_torch.ops import tables, viterbi_cuda as vc
 from deciphon_tpu_torch.ops import viterbi_torch as vt
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the suite runs several workers at
+    once, and torch's default of one thread per core oversubscribes the
+    cores many times over (these tensors are small)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ATOL = 2e-5
 

@@ -7,22 +7,39 @@ patterns of tests/test_viterbi_trace.py, and logliks within 1e-4.
 
 import numpy as np
 import pytest
+import torch
 
 from deciphon_tpu.models import codec
 from deciphon_tpu.models.alphabet import DNA
 from deciphon_tpu.models.profile import sample_profile
 from deciphon_tpu.ops import viterbi_ref as vr
 from deciphon_tpu.ops import viterbi_trace as jtr
+from deciphon_tpu_torch.models import codec as pcodec
+from deciphon_tpu_torch.models.profile import sample_profile as psample
 from deciphon_tpu_torch.ops import viterbi_trace as ptr
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the suite runs several workers at
+    once, and torch's default of one thread per core oversubscribes the
+    cores many times over (these tensors are small)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 LP = 32
 
 
-def cases():
+def cases(sample=sample_profile):
+    """(profile, read) pairs; ``sample`` is the JAX package's
+    sample_profile or the port's, on the same seeds."""
     rng = np.random.default_rng(3)
     out = []
     for trial in range(6):
-        prof = sample_profile(trial + 1, int(rng.integers(2, 9)))
+        prof = sample(trial + 1, int(rng.integers(2, 9)))
         L = int(rng.integers(4, LP))
         out.append((prof, "".join(rng.choice(list("ACGT"), L))))
     return out
@@ -32,15 +49,16 @@ def cases():
                                    (True, True)])
 def test_paths_match_jax_batch(mh, h3):
     cs = cases()
+    pprofs = [p for p, _ in cases(psample)]
     profs = [p for p, _ in cs]
     encs = [DNA.encode(s) for _, s in cs]
-    got = ptr.viterbi_alt_batch(profs, encs, mh, h3, kpad=8)
+    got = ptr.viterbi_alt_batch(pprofs, encs, mh, h3, kpad=8)
     ref = jtr.viterbi_alt_batch(profs, encs, mh, h3, kpad=8, pad_to=LP)
     assert len(got) == len(ref) == len(cs)
-    for g, r, (prof, seq), enc in zip(got, ref, cs, encs):
+    for g, r, (prof, seq), pprof, enc in zip(got, ref, cs, pprofs, encs):
         assert g.path == r.path
         assert g.loglik == pytest.approx(r.loglik, abs=1e-4)
-        assert codec.render_match(codec.match_steps(prof, seq, g.path)) == (
+        assert pcodec.render_match(pcodec.match_steps(pprof, seq, g.path)) == (
             codec.render_match(codec.match_steps(prof, seq, r.path))
         )
         # and the f64 oracle agrees on the path
@@ -51,7 +69,7 @@ def test_paths_match_jax_batch(mh, h3):
 def test_padding_is_inert():
     """Node padding and batch padding (hit axis to a power of two) change
     neither the path nor the score."""
-    cs = cases()[:3]
+    cs = cases(psample)[:3]
     profs = [p for p, _ in cs]
     encs = [DNA.encode(s) for _, s in cs]
     base = ptr.viterbi_alt_batch(profs, encs)
@@ -62,7 +80,7 @@ def test_padding_is_inert():
 
 
 def test_walk_covers_read():
-    prof, seq = cases()[1]
+    prof, seq = cases(psample)[1]
     (res,) = ptr.viterbi_alt_batch([prof], [DNA.encode(seq)])
     assert sum(l for _, l in res.path) == len(seq)
 
@@ -75,9 +93,11 @@ def test_paths_with_codes_match_jax_batch(codes):
     from deciphon_tpu.models.alphabet import encode_extended
 
     rng = np.random.default_rng(len(codes))
-    profs, reads = [], []
+    profs, pprofs, reads = [], [], []
     for trial in range(5):
-        profs.append(sample_profile(trial + 11, int(rng.integers(2, 9))))
+        k = int(rng.integers(2, 9))
+        profs.append(sample_profile(trial + 11, k))
+        pprofs.append(psample(trial + 11, k))
         r = list(rng.choice(list("ACGT"), int(rng.integers(8, LP))))
         r[trial % 4] = codes[0]
         r[-2] = codes[-1]
@@ -87,12 +107,13 @@ def test_paths_with_codes_match_jax_batch(codes):
         enc, got = encode_extended(r)
         assert got == codes
         encs.append(enc)
-    got = ptr.viterbi_alt_batch(profs, encs, kpad=8, codes=codes)
+    got = ptr.viterbi_alt_batch(pprofs, encs, kpad=8, codes=codes)
     ref = jtr.viterbi_alt_batch(profs, encs, kpad=8, pad_to=LP, codes=codes)
-    for g, r, prof, seq, enc in zip(got, ref, profs, reads, encs):
+    for g, r, prof, pprof, seq, enc in zip(got, ref, profs, pprofs, reads,
+                                           encs):
         assert g.path == r.path
         assert g.loglik == pytest.approx(r.loglik, abs=1e-4)
-        assert codec.render_match(codec.match_steps(prof, seq, g.path)) == (
+        assert pcodec.render_match(pcodec.match_steps(pprof, seq, g.path)) == (
             codec.render_match(codec.match_steps(prof, seq, r.path))
         )
         assert g.path == vr.viterbi_alt(prof, enc, codes=codes).path
