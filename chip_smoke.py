@@ -4,15 +4,19 @@
     python3 chip_smoke.py    # needs one CUDA card; ~6 min on an H100
 
 Phases, each fatal on failure:
-  1. the card (nvidia-smi name and power limit) and the kernel build
-     (nvcc, sm_90a) from csrc/ in this checkout;
-  2. both kernel instantiations (Viterbi = max, forward = logsumexp)
-     against their plain torch version on the card, over a menu of core
-     sizes, read lengths and flags on base-4 tables, and on base-5
-     ("N") and base-6 ("N", "R") tables with N at read positions 1-5
-     and R mid-read; every block holds a profile with two dead DD
-     links.  Tolerance: 1e-4 + 1e-6 * |plain| (max), 1e-3 + 1e-5 *
-     |plain| (logsumexp);
+  1. the card (nvidia-smi name, power limit and maximum SM clock) and
+     the kernel build (nvcc, sm_90a, one process per source) from csrc/
+     in this checkout, with each kernel's registers and spills;
+  2. both kernels (Viterbi = max, csrc/viterbi.cu; forward = logsumexp,
+     csrc/forward.cu, in scaled probability space) against their plain
+     torch version on the card, over a menu of core sizes, read lengths
+     and flags on base-4 tables, and on base-5 ("N") and base-6 ("N",
+     "R") tables with N at read positions 1-5 and R mid-read; every
+     block holds a profile with two dead DD links; then reads of two
+     copies of a strong domain (K 40 and 129, each copy > 100 nats
+     over the null) on the forward kernel under all four flag pairs.
+     Tolerance: 1e-4 + 1e-6 * |plain| (max), 1e-3 + 1e-5 * |plain|
+     (logsumexp);
   3. the main path at a Pfam-shaped size: press a synthetic 1024-profile
      .hmm, then scan one mixed read set (256 ACGT reads, 24 reads with N,
      8 with N and R) under Viterbi and under --forward, each with the
@@ -22,9 +26,9 @@ Phases, each fatal on failure:
      read class, every pass-1 cell of every class must equal the plain
      version, and no jax may be loaded.  Kernel-vs-plain times per class,
      warm scan seconds and GCUPS are timed with CUDA events, and each
-     kernel's bound (the larger of its bytes over 3.35 TB/s and its f32
-     operations over 67 TFLOP/s, the operations of expf and log1pf
-     counted from their SASS) is computed from the same inputs;
+     kernel's bound is computed from the same inputs: the larger of its
+     bytes over 3.35 TB/s and its operations over the card's rates (see
+     `bound`);
   4. the profile-sharded engine on the same DB and reads: a mesh over
      every visible card, or on one card ["cuda:0"] * 4 as 2 read shards x
      2 profile shards.  Viterbi and forward scans and best hits: every
@@ -57,11 +61,13 @@ import numpy as np
 
 # (absolute, relative) tolerance of kernel vs plain, per semiring.  Max:
 # both sides add the same f32 values, only the order of the maxima
-# differs.  Logsumexp: the kernel joins with expf/log1pf pairwise where
-# the plain version takes torch.logsumexp / logcumsumexp, so each join
-# may round differently, over up to 600 positions.
+# differs.  Logsumexp: the kernel sums linear f32 values scaled by powers
+# of two where the plain version joins logs with torch.logsumexp /
+# logcumsumexp, so each step may round differently, over up to 600
+# positions.
 TOL = {"max": (1e-4, 1e-6), "logsumexp": (1e-3, 1e-5)}
-KERNEL_SOURCE = "deciphon_tpu_torch/csrc/viterbi.cu"
+KERNEL_SOURCE = {"max": "deciphon_tpu_torch/csrc/viterbi.cu",
+                 "logsumexp": "deciphon_tpu_torch/csrc/forward.cu"}
 KERNEL_REPLACES = "deciphon_tpu/ops/viterbi_pallas.py:178"
 KERNEL_NAME = {"max": "viterbi_max", "logsumexp": "viterbi_lse"}
 ALGO = {"max": "viterbi", "logsumexp": "forward"}
@@ -72,21 +78,35 @@ FLAGS = ((True, False), (False, False), (True, True), (False, True))
 EXT_CODES = (("N",), ("N", "R"))
 EXT_K = (8, 129, 896, 2048, 4096)
 EXT_FLAGS = ((True, False), (False, True))
+# two copies of a peaked profile's consensus in one read, forward only,
+# all four flag pairs
+TWO_COPY_K = (40, 129)  # NPT 4 and 8; reads up to 814 nt
 NPROF = 1024
 NREADS = 256  # ACGT reads
 NPLANTED = 8  # of them consensus reads of known profiles
 N_READS, N_PLANTED = 24, 8  # reads with N; consensus reads with one N
 NR_READS, NR_PLANTED = 8, 2  # reads with N and R; planted ones
 # the card's published peaks (H100 SXM data sheet, 700 W): HBM bytes/s
-# and f32 operations/s outside the tensor cores
+# and f32 operations/s outside the tensor cores (an FMA counted as two)
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
-# f32 operations of the recurrence per (node, position), counted from
-# csrc/viterbi.cu: 18 adds and one NEG clamp (an fmaxf), and 16 joins
-# (8 of the match/insert in-flow, 1 D-chain prefix, 1 shifted prefix,
-# 2 for VE, 2 in the core out-flow, 2 in the ring writes); a max join is
-# one fmaxf, a logsumexp join 4 operations (max, -inf test, subtract,
-# add) plus the SASS of one expf and one log1pf
-ADDS_CLAMP, JOINS = 19, 16
+# issue rates per SM and clock (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0): 128 f32 lanes, 16
+# special-function (MUFU) lanes; the H100 SXM has 132 SMs
+SMS, F32_LANES, MUFU_LANES = 132, 128, 16
+# Viterbi: f32 operations of the recurrence per (node, position), counted
+# from csrc/viterbi.cu: 18 adds and one NEG clamp (an fmaxf), and 16
+# joins of one fmaxf each (8 of the match/insert in-flow, 1 D-chain
+# prefix, 1 shifted prefix, 2 for VE, 2 in the core out-flow, 2 in the
+# ring writes), all at PEAK_F32
+MAX_OPS = 19 + 16
+# Forward: the recurrence's work per (node, position) in probability
+# space, whatever kernel runs it: 15 FMAs (5 match and 5 insert in-flow
+# accumulations, 1 D-chain step, 2 in the core out-flow, 1 in each ring
+# write), 18 other f32 instructions (5 ring x emission products, 5
+# log2(e) scalings of the gathered log entries, M x MD, D x DM, I x II,
+# 2 adds for VE, 3 maxima for the values' scales) and 5 exponentials of
+# the gathered match entries on the MUFU pipe
+FWD_FMA, FWD_OTHER, FWD_MUFU = 15, 18, 5
 # the paths of phases 3-5, in the kernel table's "paths"
 PATHS = ("scan", "sharded", "daemon")
 
@@ -147,6 +167,8 @@ def phase_kernel_menu(dev) -> dict:
     """Worst |kernel - plain| per semiring over the menu."""
     import torch
 
+    from deciphon_tpu_torch.models.h3reader import build_profile
+    from deciphon_tpu_torch.models.h3writer import random_h3
     from deciphon_tpu_torch.models.profile import sample_profile
     from deciphon_tpu_torch.ops import viterbi_cuda as vc
     from deciphon_tpu_torch.ops.viterbi_torch import NEG
@@ -196,9 +218,54 @@ def phase_kernel_menu(dev) -> dict:
                     worst[semiring] = max(worst[semiring], da, dn)
                     ncells += 1
             del blk
+    # reads of two copies of a strong domain: the first copy's paths
+    # end > 100 nats above a fresh start from N at the second (beyond
+    # f32's range), and under multi_hits = false only N starts a hit
+    rng = np.random.default_rng(11)
+    for K in TWO_COPY_K:
+        prof = build_profile(random_h3(K, K, peak=0.9))
+        reads = two_copy_reads(consensus_dna(prof), rng)
+        lens = [len(r) for r in reads]
+        eidx = torch.from_numpy(eidx_of(reads, max(lens))).to(dev)
+        slen = torch.tensor(lens, dtype=torch.int32, device=dev)
+        blk = vc.CudaBlock.from_profiles(
+            [prof, sample_profile(K, max(2, K // 2))], device=dev)
+        semiring = "logsumexp"  # the Viterbi kernel has no scales
+        for mh, h3 in FLAGS:
+            alt, null = vc.scores(blk, eidx, slen, mh, h3, semiring)
+            palt, pnull = vc.scores_plain(blk, eidx, slen, mh, h3,
+                                          semiring)
+            torch.cuda.synchronize()
+            da, ea = max_excess(alt, palt, semiring)
+            dn, en = max_excess(null, pnull, semiring)
+            lrt = float(palt[0, 0] - pnull[0, 0])
+            print(f"two copies K={K} {semiring} multi_hits={mh} "
+                  f"hmmer3_compat={h3}: max|d| alt {da:.3g} null "
+                  f"{dn:.3g} (equal copies: alt - null {lrt:.0f} nats)")
+            finite = bool(torch.isfinite(alt).all() and
+                          torch.isfinite(null).all())
+            if not finite or max(ea, en) > 0:
+                per = (alt - palt).abs()[:, 0].tolist()
+                print("  per read: " + " ".join(f"{d:.2g}" for d in per))
+                raise SystemExit(f"{semiring} kernel disagrees with "
+                                 f"plain on two copies, K={K}")
+            worst[semiring] = max(worst[semiring], da, dn)
+            ncells += 1
+        del blk
     print(f"menu: all {ncells} cells within tolerance, max|d| "
           + ", ".join(f"{s} {w:.3g}" for s, w in worst.items()))
     return worst
+
+
+def two_copy_reads(cons: str, rng) -> list[str]:
+    """Two copies of ``cons``: equal, the first weaker (a ninth of its
+    codons redrawn), the first stronger, and 40 nt apart."""
+    weak = list(cons)
+    for j in rng.choice(len(cons) // 3, len(cons) // 9, replace=False):
+        weak[3 * j: 3 * j + 3] = rng.choice(list("ACGT"), 3)
+    weak = "".join(weak)
+    return [cons + cons, weak + cons, cons + weak,
+            cons + "ACGTTGCA" * 5 + cons]
 
 
 def ragged_core_sizes(rng) -> np.ndarray:
@@ -250,84 +317,49 @@ def timed_ms(fn, reps: int = 1) -> float:
     return best
 
 
-PROBE_CU = r"""
-extern "C" __global__ void k_base(float* x) {
-  x[threadIdx.x] = x[threadIdx.x] + 1.0f;
-}
-extern "C" __global__ void k_expf(float* x) {
-  x[threadIdx.x] = expf(x[threadIdx.x]) + 1.0f;
-}
-extern "C" __global__ void k_log1pf(float* x) {
-  x[threadIdx.x] = log1pf(x[threadIdx.x]) + 1.0f;
-}
-"""
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0]
+    return float(mhz) * 1e6
 
 
-def sass_ops(workdir: str) -> dict[str, int]:
-    """SASS instructions of one expf and one log1pf as the kernel's build
-    compiles them (sm_90a, -O3, no fast math): each probe kernel's count
-    up to its last EXIT, less the bare load-add-store kernel's."""
-    from deciphon_tpu_torch.ops import _build
-
-    src = os.path.join(workdir, "probe.cu")
-    cubin = os.path.join(workdir, "probe.cubin")
-    with open(src, "w") as fp:
-        fp.write(PROBE_CU)
-    nvcc = _build._nvcc()
-    subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-O3", "-o", cubin, src], check=True, capture_output=True)
-    sass = subprocess.run(
-        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
-        check=True, capture_output=True, text=True,
-    ).stdout
-    counts, name, body = {}, None, []
-
-    def close():
-        if name is not None:
-            ends = [j for j, op in enumerate(body) if op == "EXIT"]
-            counts[name] = ends[-1] + 1 if ends else 0
-
-    for line in sass.splitlines():
-        if "Function :" in line:
-            close()
-            name, body = line.split("Function :")[1].strip(), []
-        elif name is not None and line.strip().startswith("/*") and ";" in line:
-            op = line.split("*/", 1)[1].strip().split(";")[0].split()
-            if op and op[0].startswith("@"):
-                op = op[1:]
-            if op:
-                body.append(op[0])
-    close()
-    base = counts.get("k_base", 0)
-    out = {f: counts.get(f"k_{f}", 0) - base for f in ("expf", "log1pf")}
-    if base <= 0 or min(out.values()) <= 0:
-        raise SystemExit(f"SASS probe found no instructions: {counts}")
-    return out
+def ops_seconds(semiring: str, clock: float) -> float:
+    """Least seconds per (node, position) on the card's arithmetic: for
+    forward the larger of its f32 time (FMAs at PEAK_F32 as two
+    operations each, other f32 instructions at the issue rate) and its
+    MUFU time."""
+    if semiring == "max":
+        return MAX_OPS / PEAK_F32
+    f32 = 2 * FWD_FMA / PEAK_F32 + FWD_OTHER / (SMS * F32_LANES * clock)
+    return max(f32, FWD_MUFU / (SMS * MUFU_LANES * clock))
 
 
-def ops_per_node(semiring: str, sass: dict) -> int:
-    """f32 operations of the recurrence per (node, position)."""
-    join = 1 if semiring == "max" else 4 + sass["expf"] + sass["log1pf"]
-    return ADDS_CLAMP + JOINS * join
-
-
-def bound(nbytes: int, node_pos: int, semiring: str, sass: dict):
+def bound(nbytes: int, node_pos: int, semiring: str, clock: float):
     """(bound ms, "bytes" or "operations") of launches that move
     ``nbytes`` and compute ``node_pos`` (node, position) cells."""
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = node_pos * ops_per_node(semiring, sass) / PEAK_F32
+    t_ops = node_pos * ops_seconds(semiring, clock)
     return 1e3 * max(t_bytes, t_ops), (
         "bytes" if t_bytes >= t_ops else "operations")
 
 
-def launch_work(blk, eidx, slen) -> tuple[int, int]:
-    """(bytes, (node, position) cells) of one launch: each table, read
-    and output byte once; every padded node at every read position."""
+def launch_work(blk, eidx, slen, semiring: str,
+                nodes: int) -> tuple[int, int]:
+    """(bytes, (node, position) cells) of one launch: each table, plane,
+    read and output byte once; at every read position, every padded node
+    for Viterbi (its bound as it was first set), the ``nodes`` core nodes
+    of the block's profiles for forward (the recurrence's own work,
+    whatever padding a kernel picks)."""
     B, _, K = blk.fm.shape
     S = eidx.shape[0]
-    nbytes = 4 * (blk.fm.numel() + blk.fin.numel() + blk.trans.numel()
+    planes = blk.trans if semiring == "max" else blk.ptrans
+    nbytes = 4 * (blk.fm.numel() + blk.fin.numel() + planes.numel()
                   + eidx.numel() + slen.numel() + 3 * S + 2 * S * B)
-    return nbytes, int(slen.sum()) * B * K
+    return nbytes, int(slen.sum()) * (B * K if semiring == "max" else nodes)
 
 
 def reset_launches() -> None:
@@ -379,7 +411,7 @@ def check_planted(hit_pairs: set, planted: dict, what: str) -> None:
     print(f"{what}: all {len(planted)} planted reads hit")
 
 
-def phase_main_path(dev, workdir: str, sass: dict):
+def phase_main_path(dev, workdir: str, clock: float):
     """(per semiring: launches, max_abs_err, ms, plain_ms, bound_ms,
     bound_by of the main path; the context phases 4 and 5 compare
     with)."""
@@ -490,11 +522,12 @@ def phase_main_path(dev, workdir: str, sass: dict):
             p_ms = timed_ms(run_plain)
             k_ms = timed_ms(run_kernel, reps=3)
             c_bytes = c_cells = 0
-            for blk in blks:
-                b_, c_ = launch_work(blk, eidx, slen)
+            for b, blk in zip(engine.blocks, blks):
+                b_, c_ = launch_work(blk, eidx, slen, semiring,
+                                     int(db.core_sizes[b.chunk].sum()))
                 c_bytes += b_
                 c_cells += c_
-            c_bound, c_by = bound(c_bytes, c_cells, semiring, sass)
+            c_bound, c_by = bound(c_bytes, c_cells, semiring, clock)
             nbytes += c_bytes
             node_pos += c_cells
             d_cls = 0.0
@@ -538,10 +571,11 @@ def phase_main_path(dev, workdir: str, sass: dict):
               f"(host clock {min(h for _, h in scan_s):.4f} s), "
               f"{cells / warm / 1e9:.2f} GCUPS (3 x sum len x sum core, "
               f"{len(reads)} reads)")
-        bound_ms, bound_by = bound(nbytes, node_pos, semiring, sass)
+        bound_ms, bound_by = bound(nbytes, node_pos, semiring, clock)
         print(f"bound {KERNEL_NAME[semiring]}: {bound_ms:.3f} ms by "
-              f"{bound_by} ({ops_per_node(semiring, sass)} f32 ops per "
-              f"node-position); kernel {kernel_ms:.3f} ms, "
+              f"{bound_by} ({1e12 * ops_seconds(semiring, clock):.4f} ps of "
+              f"arithmetic per node-position, {node_pos} node-positions); "
+              f"kernel {kernel_ms:.3f} ms, "
               f"{100 * bound_ms / kernel_ms:.1f}% of the bound")
         out[semiring] = dict(launches=launches[semiring], max_abs_err=worst,
                              ms=kernel_ms, plain_ms=plain_ms,
@@ -736,10 +770,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}")
+    clock = sm_clock_hz()
     t_start = time.perf_counter()
     _build.library()
     print(f"kernel build: {time.perf_counter() - t_start:.2f} s "
           f"(nvcc {_build.BUILD_SECONDS:.2f} s)")
+    print(f"SM clock: {clock / 1e6:.0f} MHz (nvidia-smi clocks.max.sm)")
     for line in _build.BUILD_LOG.splitlines():
         if any(w in line for w in ("Compiling", "registers", "spill",
                                    "error")):
@@ -751,12 +787,7 @@ def main() -> int:
                            "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     try:
-        sass = sass_ops(workdir)
-        print(f"SASS: expf {sass['expf']}, log1pf {sass['log1pf']} "
-              "instructions; f32 ops per node-position: "
-              + ", ".join(f"{KERNEL_NAME[s]} {ops_per_node(s, sass)}"
-                          for s in TOL))
-        main_path, ctx = phase_main_path(dev, workdir, sass)
+        main_path, ctx = phase_main_path(dev, workdir, clock)
         print(f"main path done at {time.perf_counter() - t_start:.1f} s")
         sharded = phase_sharded(ctx)
         print(f"sharded done at {time.perf_counter() - t_start:.1f} s")
@@ -775,7 +806,8 @@ def main() -> int:
                                     daemon[semiring])))
         kernels.append({
             "name": KERNEL_NAME[semiring], "route": "cuda",
-            "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES, **rec,
+            "source": KERNEL_SOURCE[semiring], "replaces": KERNEL_REPLACES,
+            **rec,
             "paths": {k: n for k, n in per_path.items() if n},
         })
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,9 @@
-// Batched codon-frame Viterbi and forward for Hopper, sm_90a.
+// Batched codon-frame Viterbi for Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernel deciphon_tpu/ops/viterbi_pallas.py
-// `_kernel` under both of its semirings, on base-4 or taller (IUPAC,
-// base 4+D) fragment tables: for every (read, profile) pair it computes
-// the alt (plan-7 profile) and null (R-loop) log-likelihoods, with the
+// `_kernel` under semiring="max", on base-4 or taller (IUPAC, base 4+D)
+// fragment tables: for every (read, profile) pair it computes the alt
+// (plan-7 profile) and null (R-loop) Viterbi log-likelihoods, with the
 // same recurrence:
 //   - a 5-position lookback ring of the core in-flow, B->entry folded in
 //     at write time and the position-0 slot seeded with S->B->entry;
@@ -13,13 +13,12 @@
 //     VD = max(cdd + shift1(scan(VM + a_base)), NEG);
 //   - VE as a reduce over the nodes, then VB and VT;
 //   - capture of alt = T and null = R at i == seq_len.
-// One template, two instantiations (`viterbi_kernel<NPT, SR>`): the
-// semiring SR supplies the join.  MaxSR (fmaxf, Viterbi) is exposed as
-// dcp_viterbi_max, LseSR (logaddexp, forward) as dcp_viterbi_lse.  Every
-// join, scan and reduce of the recurrence goes through SR::join; the NEG
-// clamp of the D-chain is numeric and stays fmaxf in both.  The table
-// height `ntab` is a runtime argument, so the extended tables take the
-// same code: only the row indices in eidx (sentinel = ntab - 1) differ.
+// `viterbi_kernel<NPT>` (every join, scan and reduce an fmaxf) is
+// exposed as dcp_viterbi_max.  The forward algorithm has a
+// kernel of its own, in scaled probability space (forward.cu).  The
+// table height `ntab` is a runtime argument, so the extended tables take
+// the same code: only the row indices in eidx (sentinel = ntab - 1)
+// differ.
 //
 // What bounds it on the card: per position, each CTA gathers the 5
 // lookback rows of its profile's fragment table (5 * K * 4 bytes from L2:
@@ -39,82 +38,21 @@
 //     then the VE reduce together with the k -> k+1 shift of the core
 //     out-flow across warp edges);
 //   - each CTA stops at its own read's length.
-// The forward instantiation does the same loads and barriers; each of
-// its joins is an expf and a log1pf instead of one fmaxf (~60 joins per
-// thread and position at NPT = 4), so it does more arithmetic per byte.
 //
 // NEG (-1e30) is the dead value, never -inf: (-inf) - (-inf) is NaN in
 // the a_base/cdd terms.  -inf appears only as the identity of the scan
 // and the reduce, where it is only ever joined and added to finite
-// values, then clamped back to NEG.  A naive logaddexp of two -inf is
-// NaN, so LseSR::join returns -inf for that case before it subtracts.
-// Under logaddexp a join of n NEGs is NEG + log n, which rounds to NEG
-// in f32, so dead cells stay under the gate's NEG/2 mask.  The build
-// keeps --use_fast_math off: __expf and flush-to-zero would drift over
-// hundreds of positions.
+// values, then clamped back to NEG.
 
-#include <cuda_runtime.h>
+#include "nodes.cuh"
 
 namespace {
 
-constexpr float NEG = -1e30f;
-constexpr int MAX_THREADS = 512;
-constexpr int MAX_WARPS = MAX_THREADS / 32;
-constexpr int MAX_K = 4096;
-constexpr unsigned FULL = 0xffffffffu;
+using namespace dcp;
 
 // transition planes of the packed [B, NPLANES, K] tensor
 enum { P_ENTRY, P_MM_OUT, P_IM_OUT, P_DM_OUT, P_MI, P_II, P_ABASE, P_CDD,
        NPLANES };
-
-// Viterbi: the best path
-struct MaxSR {
-  static __device__ __forceinline__ float join(float a, float b) {
-    return fmaxf(a, b);
-  }
-};
-
-// forward: log(e^a + e^b), exact for -inf on either side
-struct LseSR {
-  static __device__ __forceinline__ float join(float a, float b) {
-    const float m = fmaxf(a, b);
-    if (m == -__int_as_float(0x7f800000)) return m;  // both -inf
-    return m + log1pf(expf(-fabsf(a - b)));
-  }
-};
-
-template <int NPT>
-__device__ __forceinline__ void ldg_nodes(const float* __restrict__ p,
-                                          float (&v)[NPT]) {
-#pragma unroll
-  for (int g = 0; g < NPT / 4; ++g) {
-    const float4 x = __ldg(reinterpret_cast<const float4*>(p) + g);
-    v[4 * g] = x.x;
-    v[4 * g + 1] = x.y;
-    v[4 * g + 2] = x.z;
-    v[4 * g + 3] = x.w;
-  }
-}
-
-template <int NPT>
-__device__ __forceinline__ void lds_nodes(const float* p, float (&v)[NPT]) {
-#pragma unroll
-  for (int g = 0; g < NPT / 4; ++g) {
-    const float4 x = reinterpret_cast<const float4*>(p)[g];
-    v[4 * g] = x.x;
-    v[4 * g + 1] = x.y;
-    v[4 * g + 2] = x.z;
-    v[4 * g + 3] = x.w;
-  }
-}
-
-template <int NPT>
-__device__ __forceinline__ void sts_nodes(float* p, const float (&v)[NPT]) {
-#pragma unroll
-  for (int g = 0; g < NPT / 4; ++g)
-    reinterpret_cast<float4*>(p)[g] =
-        make_float4(v[4 * g], v[4 * g + 1], v[4 * g + 2], v[4 * g + 3]);
-}
 
 // fm    [B, ntab, K]  match fragment tables
 // fin   [B, 2, ntab]  insert (row 0) and null (row 1) fragment tables
@@ -122,7 +60,7 @@ __device__ __forceinline__ void sts_nodes(float* p, const float (&v)[NPT]) {
 // eidx  [S, Lp, 5]    end-fragment indices, eidx[s, i-1, l-1] = seq[i-l:i]
 // sp    [S, 3]        per-read NN (= CC = JJ), NB (= CT = JB), RR
 // alt, nul [S, B]
-template <int NPT, class SR>
+template <int NPT>
 __global__ void __launch_bounds__(MAX_THREADS)
 viterbi_kernel(const float* __restrict__ fm, const float* __restrict__ fin,
                    const float* __restrict__ trans,
@@ -200,8 +138,8 @@ viterbi_kernel(const float* __restrict__ fm, const float* __restrict__ fin,
         for (int n = 0; n < NPT; ++n) {
           const float cm = rc[n] + em[n];
           const float ci = ri[n] + emi;
-          accM[n] = l == 0 ? cm : SR::join(accM[n], cm);
-          accI[n] = l == 0 ? ci : SR::join(accI[n], ci);
+          accM[n] = l == 0 ? cm : fmaxf(accM[n], cm);
+          accI[n] = l == 0 ? ci : fmaxf(accI[n], ci);
         }
       }
     }
@@ -211,14 +149,14 @@ viterbi_kernel(const float* __restrict__ fm, const float* __restrict__ fin,
 #pragma unroll
     for (int l = 0; l < 5; ++l) {
       const float start = (l + 1 == i) ? 0.f : NEG;
-      const float vn = SR::join(spN[l], start) + NN + emn[l];
-      const float vj = SR::join(spE[l] + t_EJ, spJ[l]) + NN + emn[l];
-      const float vc = SR::join(spE[l] + t_EC, spC[l]) + NN + emn[l];
-      const float vr = SR::join(spR[l] + RR, start) + emn[l];
-      accN = l == 0 ? vn : SR::join(accN, vn);
-      accJ = l == 0 ? vj : SR::join(accJ, vj);
-      accC = l == 0 ? vc : SR::join(accC, vc);
-      accR = l == 0 ? vr : SR::join(accR, vr);
+      const float vn = fmaxf(spN[l], start) + NN + emn[l];
+      const float vj = fmaxf(spE[l] + t_EJ, spJ[l]) + NN + emn[l];
+      const float vc = fmaxf(spE[l] + t_EC, spC[l]) + NN + emn[l];
+      const float vr = fmaxf(spR[l] + RR, start) + emn[l];
+      accN = l == 0 ? vn : fmaxf(accN, vn);
+      accJ = l == 0 ? vj : fmaxf(accJ, vj);
+      accC = l == 0 ? vc : fmaxf(accC, vc);
+      accR = l == 0 ? vr : fmaxf(accR, vr);
     }
 
     // D-chain prefix scan: thread-local prefix, then the thread totals
@@ -230,7 +168,7 @@ viterbi_kernel(const float* __restrict__ fm, const float* __restrict__ fin,
 #pragma unroll
       for (int n = 0; n < NPT; ++n) {
         const float a = accM[n] + ab[n];
-        pre[n] = n == 0 ? a : SR::join(pre[n - 1], a);
+        pre[n] = n == 0 ? a : fmaxf(pre[n - 1], a);
       }
       tot = pre[NPT - 1];
     }
@@ -238,13 +176,13 @@ viterbi_kernel(const float* __restrict__ fm, const float* __restrict__ fin,
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const float y = __shfl_up_sync(FULL, x, o);
-      if (lane >= o) x = SR::join(x, y);
+      if (lane >= o) x = fmaxf(x, y);
     }
     float excl = __shfl_up_sync(FULL, x, 1);
     if (lane == 0) excl = NINF;
     if (lane == 31) warp_tot[warp] = x;
     __syncthreads();
-    for (int w = 0; w < warp; ++w) excl = SR::join(excl, warp_tot[w]);
+    for (int w = 0; w < warp; ++w) excl = fmaxf(excl, warp_tot[w]);
 
     float VD[NPT], core[NPT];
     float m = NINF;
@@ -256,30 +194,30 @@ viterbi_kernel(const float* __restrict__ fm, const float* __restrict__ fin,
       ldg_nodes<NPT>(tr + P_DM_OUT * K, dm);
 #pragma unroll
       for (int n = 0; n < NPT; ++n) {
-        const float bsh = n == 0 ? excl : SR::join(excl, pre[n - 1]);
+        const float bsh = n == 0 ? excl : fmaxf(excl, pre[n - 1]);
         VD[n] = fmaxf(cdd[n] + bsh, NEG);  // numeric clamp, both semirings
-        m = SR::join(m, SR::join(accM[n], VD[n]));
-        core[n] = SR::join(accM[n] + mm[n],
-                           SR::join(accI[n] + im[n], VD[n] + dm[n]));
+        m = fmaxf(m, fmaxf(accM[n], VD[n]));
+        core[n] = fmaxf(accM[n] + mm[n],
+                           fmaxf(accI[n] + im[n], VD[n] + dm[n]));
       }
     }
 #pragma unroll
     // butterfly: both lanes of a pair join the same two values, and
     // join is symmetric, so every lane ends with the same bits
     for (int o = 16; o > 0; o >>= 1)
-      m = SR::join(m, __shfl_xor_sync(FULL, m, o));
+      m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
     const float last = active ? core[NPT - 1] : NEG;
     float prev = __shfl_up_sync(FULL, last, 1);  // core[k0 - 1]
     if (lane == 0) warp_max[warp] = m;
     if (lane == 31) warp_core[warp] = last;
     __syncthreads();
     float VE = warp_max[0];
-    for (int w = 1; w < nwarps; ++w) VE = SR::join(VE, warp_max[w]);
+    for (int w = 1; w < nwarps; ++w) VE = fmaxf(VE, warp_max[w]);
     if (lane == 0) prev = warp > 0 ? warp_core[warp - 1] : NEG;
 
     const float VB =
-        SR::join(accN + NB, SR::join(VE + t_EJ + NB, accJ + NB));
-    const float VT = SR::join(VE + t_EC + NB, accC + NB);
+        fmaxf(accN + NB, fmaxf(VE + t_EJ + NB, accJ + NB));
+    const float VT = fmaxf(VE + t_EC + NB, accC + NB);
     if (i == L) {
       out_alt = VT;
       out_null = accR;
@@ -295,8 +233,8 @@ viterbi_kernel(const float* __restrict__ fm, const float* __restrict__ fin,
 #pragma unroll
       for (int n = 0; n < NPT; ++n) {
         const float csh = n == 0 ? prev : core[n - 1];
-        cs[n] = SR::join(csh, VB + entry[n]);
-        ic[n] = SR::join(accM[n] + mi[n], accI[n] + ii[n]);
+        cs[n] = fmaxf(csh, VB + entry[n]);
+        ic[n] = fmaxf(accM[n] + mi[n], accI[n] + ii[n]);
       }
       sts_nodes<NPT>(ring_cs + slot * K + k0, cs);
       sts_nodes<NPT>(ring_ic + slot * K + k0, ic);
@@ -321,38 +259,21 @@ viterbi_kernel(const float* __restrict__ fm, const float* __restrict__ fin,
   }
 }
 
-template <int NPT, class SR>
+template <int NPT>
 cudaError_t launch(const float* fm, const float* fin, const float* trans,
                    const int* eidx, const int* seq_len, const float* sp,
                    float t_EJ, float t_EC, float* alt, float* nul, int S,
                    int B, int K, int ntab, int Lp, cudaStream_t stream) {
   const int smem = 2 * 5 * K * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      viterbi_kernel<NPT, SR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      viterbi_kernel<NPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   const int threads = ((K / NPT + 31) / 32) * 32;
-  viterbi_kernel<NPT, SR><<<dim3(S, B), threads, smem, stream>>>(
+  viterbi_kernel<NPT><<<dim3(S, B), threads, smem, stream>>>(
       fm, fin, trans, eidx, seq_len, sp, t_EJ, t_EC, alt, nul, B, K, ntab,
       Lp);
   return cudaGetLastError();
-}
-
-template <class SR>
-int dispatch(const float* fm, const float* fin, const float* trans,
-             const int* eidx, const int* seq_len, const float* sp,
-             float t_EJ, float t_EC, float* alt, float* nul, int S, int B,
-             int K, int ntab, int Lp, void* stream) {
-  if (S <= 0 || B <= 0) return (int)cudaSuccess;
-  if (K <= 0 || K % 32 != 0 || K > MAX_K || B > 65535 || ntab <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // 4 nodes a thread up to K = 2048 (<= 512 threads), 8 above
-  if (K <= 2048)
-    return (int)launch<4, SR>(fm, fin, trans, eidx, seq_len, sp, t_EJ, t_EC,
-                              alt, nul, S, B, K, ntab, Lp, st);
-  return (int)launch<8, SR>(fm, fin, trans, eidx, seq_len, sp, t_EJ, t_EC,
-                            alt, nul, S, B, K, ntab, Lp, st);
 }
 
 }  // namespace
@@ -363,18 +284,15 @@ extern "C" int dcp_viterbi_max(const float* fm, const float* fin,
                                float t_EJ, float t_EC, float* alt, float* nul,
                                int S, int B, int K, int ntab, int Lp,
                                void* stream) {
-  return dispatch<MaxSR>(fm, fin, trans, eidx, seq_len, sp, t_EJ, t_EC, alt,
-                         nul, S, B, K, ntab, Lp, stream);
-}
-
-extern "C" int dcp_viterbi_lse(const float* fm, const float* fin,
-                               const float* trans, const int* eidx,
-                               const int* seq_len, const float* sp,
-                               float t_EJ, float t_EC, float* alt, float* nul,
-                               int S, int B, int K, int ntab, int Lp,
-                               void* stream) {
-  return dispatch<LseSR>(fm, fin, trans, eidx, seq_len, sp, t_EJ, t_EC, alt,
-                         nul, S, B, K, ntab, Lp, stream);
+  if (S <= 0 || B <= 0) return (int)cudaSuccess;
+  if (bad_shape(B, K, ntab)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 4 nodes a thread up to K = 2048 (<= 512 threads), 8 above
+  if (K <= 2048)
+    return (int)launch<4>(fm, fin, trans, eidx, seq_len, sp, t_EJ, t_EC, alt,
+                          nul, S, B, K, ntab, Lp, st);
+  return (int)launch<8>(fm, fin, trans, eidx, seq_len, sp, t_EJ, t_EC, alt,
+                        nul, S, B, K, ntab, Lp, st);
 }
 
 extern "C" const char* dcp_cuda_error_string(int code) {

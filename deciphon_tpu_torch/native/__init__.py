@@ -10,6 +10,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 
 _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -39,16 +40,25 @@ def _configure(lib) -> None:
 
 
 def build(force: bool = False) -> bool:
-    """Build the native library (returns True on success)."""
+    """Build the native library (returns True on success).
+
+    make writes a private file name that is then renamed into place, so
+    a process that loads the library while another builds it (parallel
+    test workers, a CLI beside its parent) never maps a partial file."""
     if os.path.exists(_LIB_PATH) and not force:
         return True
+    tmp = os.path.join(_NATIVE_DIR, f".libdcp_native.{os.getpid()}."
+                                    f"{threading.get_ident()}.so")
     try:
         subprocess.run(
-            ["make", "-C", _NATIVE_DIR],
+            ["make", "-C", _NATIVE_DIR, f"TARGET={tmp}"],
             check=True, capture_output=True, timeout=120,
         )
-        return os.path.exists(_LIB_PATH)
+        os.replace(tmp, _LIB_PATH)
+        return True
     except Exception:  # noqa: BLE001 — fallback path exists
+        if os.path.exists(tmp):
+            os.unlink(tmp)
         return False
 
 

@@ -1,10 +1,12 @@
 """Build and load the package's CUDA kernels (csrc/*.cu).
 
-``nvcc`` compiles every source into one shared library with a plain C
-interface, loaded with ctypes.  The library goes to
-``deciphon_tpu_torch/build/``, named by a hash of the sources and flags,
-so it is built once per source change and reused after that.  There is
-no fallback: a missing compiler or a failed build raises.
+``nvcc`` compiles each source into a shared library of its own, with a
+plain C interface, one process per source and all of them at once; they
+are loaded with ctypes.  The libraries go to a directory under
+``deciphon_tpu_torch/build/`` named by a hash of the sources (headers
+included) and flags, so they are built once per source change and reused
+after that.  There is no fallback: a missing compiler or a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
@@ -44,13 +47,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+def library() -> SimpleNamespace:
+    """The kernels' entry points, built first if needed."""
     with _LOCK:
         return _library()
 
 
-def _library() -> ctypes.CDLL:
+def _library() -> SimpleNamespace:
     global _LIB, BUILD_LOG, BUILD_SECONDS
     if _LIB is not None:
         return _LIB
@@ -59,29 +62,46 @@ def _library() -> ctypes.CDLL:
     for src in sorted(SRC_DIR.iterdir()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    out = BUILD_DIR / f"libdcp_kernels_{h.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"kernels_{h.hexdigest()[:16]}"
     if not out.exists():
         nvcc = _nvcc()  # raises before any file is made
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        # build under a private name, then rename: concurrent builds
-        # (a CLI subprocess beside its parent) never load a partial file
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)],
-            capture_output=True, text=True,
-        )
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
+        # build into a private directory, then rename it: concurrent
+        # builds (a CLI subprocess beside its parent) never load a
+        # partial file, and the loser of a race drops its own copy
+        tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", os.path.join(tmp, f"{src.stem}.so"),
+                 str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src in sources
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        BUILD_LOG = "".join(
+            f"[{src.name}]\n{log}" for src, log in zip(sources, logs))
+        if any(p.returncode != 0 for p in procs):
+            shutil.rmtree(tmp)
             raise RuntimeError(f"nvcc failed:\n{BUILD_LOG}")
-        os.replace(tmp, out)
+        try:
+            os.rename(tmp, out)
+        except OSError:
+            shutil.rmtree(tmp)
         BUILD_SECONDS = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(out))
+    viterbi = ctypes.CDLL(str(out / "viterbi.so"))
+    forward = ctypes.CDLL(str(out / "forward.so"))
+    lib = SimpleNamespace(
+        dcp_viterbi_max=viterbi.dcp_viterbi_max,
+        dcp_viterbi_lse=forward.dcp_viterbi_lse,
+        dcp_cuda_error_string=viterbi.dcp_cuda_error_string,
+    )
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # (fm, fin, trans, eidx, seq_len, sp, t_EJ, t_EC, alt, nul,
-    #  S, B, K, ntab, Lp, stream), one entry point per semiring
+    #  S, B, K, ntab, Lp, stream), one entry point per semiring: the
+    #  Viterbi kernel (viterbi.cu) takes the log planes `trans`, the
+    #  forward kernel (forward.cu) the probability planes `ptrans`
     for fn in (lib.dcp_viterbi_max, lib.dcp_viterbi_lse):
         fn.argtypes = [p, p, p, p, p, p, f, f, p, p, i, i, i, i, i, p]
         fn.restype = i

@@ -1,17 +1,21 @@
-"""Packing, plain recurrence and launch of the Hopper Viterbi kernel.
+"""Packing, plain recurrence and launch of the Hopper kernels.
 
 The counterpart of the host side of deciphon_tpu/ops/viterbi_pallas.py:
 ``_pack_trans`` (:792), ``pack_block`` (:842), ``pack_block_compact``
 (:894), ``PallasBlock.from_profiles`` (:1392) and the launch
-(``run_scores_raw`` :1153), for the kernel in csrc/viterbi.cu.
+(``run_scores_raw`` :1153), for the Viterbi kernel in csrc/viterbi.cu
+and the forward kernel in csrc/forward.cu.
 
-The kernel's own layout, per block of B profiles padded to K nodes:
-  fm    [B, ntab, K]  match fragment tables, rows contiguous along K
-                      (ntab = 1365 for ACGT reads, 3906 / 9331 / ...
-                      for reads holding 1 / 2 / ... IUPAC codes)
-  fin   [B, 2, ntab]  insert and null fragment tables
-  trans [B, 8, K]     planes ENTRY, MM_OUT, IM_OUT, DM_OUT, MI, II,
-                      ABASE, CDD (viterbi_pallas.py:119)
+The kernels' own layout, per block of B profiles padded to K nodes:
+  fm     [B, ntab, K]  match fragment tables (log), rows contiguous along
+                       K (ntab = 1365 for ACGT reads, 3906 / 9331 / ...
+                       for reads holding 1 / 2 / ... IUPAC codes)
+  fin    [B, 2, ntab]  insert and null fragment tables (log)
+  trans  [B, 8, K]     log planes ENTRY, MM_OUT, IM_OUT, DM_OUT, MI, II,
+                       ABASE, CDD (viterbi_pallas.py:119): the Viterbi
+                       kernel's, and the plain version's
+  ptrans [B, 8, K]     probability planes ENTRY, MM_OUT, IM_OUT, DM_OUT,
+                       MI, II, MD_OUT, DD_OUT: the forward kernel's
 K is a multiple of LANE so every thread's node group is one aligned
 float4.  None of the TPU layout (sublane groups, segments, slot spans,
 VMEM streaming, SMEM chunks) carries over.
@@ -34,13 +38,16 @@ from deciphon_tpu_torch.ops.tables import synth_fragment_tables
 from deciphon_tpu_torch.ops.viterbi_torch import NEG, TRANS_NAMES, specials
 
 (P_ENTRY, P_MM_OUT, P_IM_OUT, P_DM_OUT, P_MI, P_II, P_ABASE, P_CDD) = range(8)
+# the forward kernel's planes of ptrans (csrc/forward.cu), source-indexed
+(Q_ENTRY, Q_MM_OUT, Q_IM_OUT, Q_DM_OUT, Q_MI, Q_II, Q_MD_OUT,
+ Q_DD_OUT) = range(8)
 NPLANES = 8
 LANE = 32  # node padding unit of the packed K axis
 MAX_K = 4096  # the reference's core-size envelope (core/limits.h:11)
 
 SEMIRINGS = ("max", "logsumexp")
-# kernel launches made by scores(), per semiring (the kernel's two
-# instantiations); callers that must show a run went through a kernel
+# kernel launches made by scores(), per semiring (viterbi_max for "max",
+# viterbi_lse for "logsumexp"); callers that must show a run went through a kernel
 # set the counts to 0 before the run and read them after
 LAUNCHES = dict.fromkeys(SEMIRINGS, 0)
 
@@ -50,7 +57,8 @@ class CudaBlock(NamedTuple):
 
     fm: torch.Tensor  # [B, ntab, K]
     fin: torch.Tensor  # [B, 2, ntab]
-    trans: torch.Tensor  # [B, NPLANES, K]
+    trans: torch.Tensor  # [B, NPLANES, K] log planes
+    ptrans: torch.Tensor  # [B, NPLANES, K] probability planes
 
     @property
     def kpad(self) -> int:
@@ -63,7 +71,9 @@ class CudaBlock(NamedTuple):
         the compact per-node inputs (ops/tables.py) — the counterpart of
         PallasBlock.from_profiles.  Non-empty ``codes`` builds the
         extended base-(4+D) tables of reads holding those IUPAC codes."""
-        emis, qp, ine, inq, trans, eps = pack_compact(profiles, kpad, codes)
+        emis, qp, ine, inq, trans, ptrans, eps = pack_compact(
+            profiles, kpad, codes
+        )
         B, K, W = emis.shape
         dev = torch.device(device)
 
@@ -77,7 +87,8 @@ class CudaBlock(NamedTuple):
         ntab = fm.shape[1]
         fm = fm.reshape(B, K, ntab).transpose(1, 2).contiguous()
         fin = synth(ine, inq).reshape(B, 2, ntab)
-        return cls(fm, fin, torch.from_numpy(trans).to(dev))
+        return cls(fm, fin, torch.from_numpy(trans).to(dev),
+                   torch.from_numpy(ptrans).to(dev))
 
 
 def pad_width(k: int) -> int:
@@ -85,9 +96,17 @@ def pad_width(k: int) -> int:
     return max(LANE, -(-k // LANE) * LANE)
 
 
+def _out_of(a: np.ndarray) -> np.ndarray:
+    """Destination-indexed trans[k] (from node k-1) -> source-indexed
+    (to node k+1), NEG past the last node."""
+    return np.concatenate(
+        [a[:, 1:], np.full((a.shape[0], 1), NEG, a.dtype)], axis=1
+    )
+
+
 def pack_trans(arrs: dict[str, np.ndarray]) -> np.ndarray:
-    """[B, NPLANES, K] transition planes from destination-indexed [B, K]
-    per-node vectors (already padded with NEG)."""
+    """[B, NPLANES, K] log transition planes from destination-indexed
+    [B, K] f32 per-node vectors (already padded with NEG)."""
     dd = arrs["dd_in"]
     B = dd.shape[0]
     # Dead DD links clamp to a moderate floor, not ~NEG: the telescoped
@@ -103,18 +122,32 @@ def pack_trans(arrs: dict[str, np.ndarray]) -> np.ndarray:
     md_next = np.concatenate([arrs["md_in"][:, 1:], neg1], axis=1)
     cdd_next = np.concatenate([cdd[:, 1:], cdd[:, -1:]], axis=1)
     a_base = np.maximum(md_next - cdd_next, NEG)
-
-    def out_of(name):
-        # destination-indexed trans[k] (from node k-1) -> source-indexed
-        return np.concatenate([arrs[name][:, 1:], neg1], axis=1)
-
     return np.stack(
         [
-            arrs["entry"], out_of("mm_in"), out_of("im_in"),
-            out_of("dm_in"), arrs["mi"], arrs["ii"], a_base, cdd,
+            arrs["entry"], _out_of(arrs["mm_in"]), _out_of(arrs["im_in"]),
+            _out_of(arrs["dm_in"]), arrs["mi"], arrs["ii"], a_base, cdd,
         ],
         axis=1,
     ).astype(np.float32)
+
+
+def pack_prob_trans(arrs: dict[str, np.ndarray]) -> np.ndarray:
+    """[B, NPLANES, K] probability planes of the forward kernel from the
+    same per-node vectors as ``pack_trans``: exp of each f32 log
+    transition, taken in f64, source-indexed like the log planes.  Dead
+    links and padding (NEG) are exactly 0, so the D-chain needs neither
+    the telescoped cdd nor its -1e4 clamp.  The f32 log values are the
+    ones the log planes and the plain version hold, so both packers give
+    the same bits."""
+    logp = np.stack(
+        [
+            arrs["entry"], _out_of(arrs["mm_in"]), _out_of(arrs["im_in"]),
+            _out_of(arrs["dm_in"]), arrs["mi"], arrs["ii"],
+            _out_of(arrs["md_in"]), _out_of(arrs["dd_in"]),
+        ],
+        axis=1,
+    )
+    return np.exp(logp.astype(np.float64)).astype(np.float32)
 
 
 def pack_numpy_block(block) -> CudaBlock:
@@ -138,6 +171,7 @@ def pack_numpy_block(block) -> CudaBlock:
     return CudaBlock(
         torch.from_numpy(fm_p), torch.from_numpy(fin),
         torch.from_numpy(pack_trans(arrs)),
+        torch.from_numpy(pack_prob_trans(arrs)),
     )
 
 
@@ -146,7 +180,8 @@ def pack_compact(profiles, kpad: int | None = None, codes: tuple = ()):
     inputs instead of full tables (viterbi_pallas.pack_block_compact).
 
     Returns (emis [B, Kp, W], qp [B, Kp, 5], ine [B, 2, W],
-    inq [B, 2, 5], trans [B, NPLANES, Kp], eps); row 0 of ine/inq is the
+    inq [B, 2, 5], trans [B, NPLANES, Kp], ptrans [B, NPLANES, Kp], eps);
+    row 0 of ine/inq is the
     insert distribution, row 1 the null one.  ``emis`` holds the codon
     marginals (W = 125) for base-4 tables, and the codon probabilities
     (W = 64) when ``codes`` asks for extended ones."""
@@ -176,7 +211,7 @@ def pack_compact(profiles, kpad: int | None = None, codes: tuple = ()):
                 np.asarray(getattr(p, name), np.float64), NEG
             )
     eps = float(profiles[0].cfg.epsilon)
-    return emis, qp, ine, inq, pack_trans(arrs), eps
+    return emis, qp, ine, inq, pack_trans(arrs), pack_prob_trans(arrs), eps
 
 
 # rows of the specials ring (VB enters the DP only through ring_cs)
@@ -214,7 +249,7 @@ def scores_plain(
     cummax; under "logsumexp" they are logaddexp, logsumexp and
     logcumsumexp.  The NEG clamp of the D-chain is the same in both."""
     join, red, cum = _semiring(semiring)
-    fm, fin, trans = blk
+    fm, fin, trans = blk.fm, blk.fin, blk.trans
     B, _, K = fm.shape
     S = eidx.shape[0]
     dev = fm.device
@@ -282,7 +317,8 @@ def scores(
     semiring: str = "max",
 ):
     """(alt [S, B], null [S, B]) f32: the plain version for a block on
-    the CPU, the CUDA kernel of ``semiring`` for a block on the card."""
+    the CPU, the CUDA kernel of ``semiring`` for a block on the card
+    (csrc/viterbi.cu for "max", csrc/forward.cu for "logsumexp")."""
     if semiring not in SEMIRINGS:
         raise ValueError(f"unknown semiring {semiring!r}")
     if not blk.fm.is_cuda:
@@ -295,7 +331,10 @@ def scores(
 def _launch(blk, eidx, seq_len, multi_hits, hmmer3_compat, semiring):
     from deciphon_tpu_torch.ops import _build
 
-    fm, fin, trans = blk
+    fm, fin = blk.fm, blk.fin
+    # the Viterbi kernel reads the log planes, the forward kernel the
+    # probability planes, in the same argument slot
+    trans = blk.trans if semiring == "max" else blk.ptrans
     B, ntab, K = fm.shape
     S, Lp, five = eidx.shape
     dev = fm.device

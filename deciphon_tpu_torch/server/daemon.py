@@ -159,7 +159,10 @@ class Server:
         library) now, on a background thread, while no scan is waiting:
         the first scan job of this DB finds them in the table store.
         ``_scan`` joins the thread before it starts, so the two never
-        race."""
+        race.  DCP_PRESS_PREWARM=0 disables it (the tables then stay off
+        the device until a scan of the DB needs them)."""
+        if os.environ.get("DCP_PRESS_PREWARM", "1") == "0":
+            return
         self._join_prewarm()
         key = (db_path, xfile.xxh3_64(db_path))
         self._prune_tables(keep=key)

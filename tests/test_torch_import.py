@@ -23,62 +23,95 @@ from deciphon_tpu_torch.ops import scan_engine as pse
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import importlib, pkgutil, sys
-import numpy as np
-import deciphon_tpu_torch
-assert "jax" not in sys.modules, "jax preloaded by the interpreter"
-for m in pkgutil.walk_packages(deciphon_tpu_torch.__path__,
-                               "deciphon_tpu_torch."):
-    importlib.import_module(m.name)
-from deciphon_tpu_torch.db.format import TensorDB
-from deciphon_tpu_torch.models.alphabet import STANDARD_CODE
-from deciphon_tpu_torch.models.h3writer import random_h3, write_h3
-from deciphon_tpu_torch.cli.main import main
-tmp = sys.argv[1]
-with open(f"{tmp}/s.hmm", "w") as fp:
-    write_h3(fp, [random_h3(s + 1, k, peak=0.9) for s, k in enumerate((4, 6))])
-assert main(["press", f"{tmp}/s.hmm", "-o", f"{tmp}/s.dtp"]) == 0
-p = TensorDB.load(f"{tmp}/s.dtp").profile(1)
-read = "".join(STANDARD_CODE.codon_str(b // 16, (b // 4) % 4, b % 4)
-               for b in map(int, np.argmax(p.match_codonp, 1)))
-with open(f"{tmp}/r.fa", "w") as fp:
-    fp.write(f">r1\n{read}\n")
-assert main(["scan", f"{tmp}/s.dtp", f"{tmp}/r.fa", "-o", f"{tmp}/p.tsv",
-             "--device", "cpu"]) == 0
-assert p.accession in open(f"{tmp}/p.tsv").read()
-# a forward scan of one read holding N (extended tables)
-with open(f"{tmp}/n.fa", "w") as fp:
-    fp.write(f">n1\n{read[:4]}N{read[5:]}\n")
-assert main(["scan", f"{tmp}/s.dtp", f"{tmp}/n.fa", "-o", f"{tmp}/f.tsv",
-             "--device", "cpu", "--forward"]) == 0
-assert p.accession in open(f"{tmp}/f.tsv").read()
-# best hits, and one share-nothing partition
-assert main(["scan", f"{tmp}/s.dtp", f"{tmp}/r.fa", "-o", f"{tmp}/b.tsv",
-             "--device", "cpu", "--best-hit"]) == 0
-assert p.accession in open(f"{tmp}/b.tsv").read()
-assert main(["scan", f"{tmp}/s.dtp", f"{tmp}/r.fa", "-o", f"{tmp}/h.tsv",
-             "--device", "cpu", "--shard", "2/2"]) == 0
-# the daemon: a press job, then a scan job, one serve --single-run each
-from deciphon_tpu_torch.server.fake_sched import FakeScheduler
+import contextlib, importlib, pkgutil, sys, traceback
 
-fake = FakeScheduler(spool_dir=f"{tmp}/spool")
-url = fake.serve()
-host, port = url.rsplit("/", 1)[1].split(":")
-with open(f"{tmp}/.env", "w") as fp:
-    fp.write(f"API_HOST={host}\nAPI_PORT={port}\n")
+
+@contextlib.contextmanager
+def step(name):
+    # each step fails with its own message, which names it
+    try:
+        yield
+    except BaseException as exc:
+        traceback.print_exc()
+        sys.exit(f"step {name!r} failed: {type(exc).__name__}: {exc}")
+    print(f"step ok: {name}", flush=True)
+
+
+def no_jax(where):
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "deciphon_tpu"))
+    assert not bad, f"{where}: {bad}"
+
+
+with step("interpreter start"):
+    no_jax("loaded before the port")
+with step("import every module of the port"):
+    import numpy as np
+    import deciphon_tpu_torch
+    for m in pkgutil.walk_packages(deciphon_tpu_torch.__path__,
+                                   "deciphon_tpu_torch."):
+        importlib.import_module(m.name)
+    from deciphon_tpu_torch.db.format import TensorDB
+    from deciphon_tpu_torch.models.alphabet import STANDARD_CODE
+    from deciphon_tpu_torch.models.h3writer import random_h3, write_h3
+    from deciphon_tpu_torch.cli.main import main
+    from deciphon_tpu_torch.server.fake_sched import FakeScheduler
+    no_jax("after the imports")
+tmp = sys.argv[1]
+with step("press"):
+    with open(f"{tmp}/s.hmm", "w") as fp:
+        write_h3(fp, [random_h3(s + 1, k, peak=0.9)
+                      for s, k in enumerate((4, 6))])
+    assert main(["press", f"{tmp}/s.hmm", "-o", f"{tmp}/s.dtp"]) == 0, "rc"
+    p = TensorDB.load(f"{tmp}/s.dtp").profile(1)
+    read = "".join(STANDARD_CODE.codon_str(b // 16, (b // 4) % 4, b % 4)
+                   for b in map(int, np.argmax(p.match_codonp, 1)))
+    with open(f"{tmp}/r.fa", "w") as fp:
+        fp.write(f">r1\n{read}\n")
+    with open(f"{tmp}/n.fa", "w") as fp:
+        fp.write(f">n1\n{read[:4]}N{read[5:]}\n")
+
+
+def scan(fasta, out, *extra):
+    assert main(["scan", f"{tmp}/s.dtp", f"{tmp}/{fasta}", "-o",
+                 f"{tmp}/{out}", "--device", "cpu", *extra]) == 0, "rc"
+    text = open(f"{tmp}/{out}").read()
+    assert p.accession in text, f"{p.accession} not in {text!r}"
+
+
+with step("scan"):
+    scan("r.fa", "p.tsv")
+with step("forward scan of a read holding N"):
+    scan("n.fa", "f.tsv", "--forward")
+with step("scan --best-hit"):
+    scan("r.fa", "b.tsv", "--best-hit")
+with step("scan --shard 2/2"):
+    assert main(["scan", f"{tmp}/s.dtp", f"{tmp}/r.fa", "-o",
+                 f"{tmp}/h.tsv", "--device", "cpu", "--shard", "2/2"]) == 0
+with step("start the fake scheduler"):
+    fake = FakeScheduler(spool_dir=f"{tmp}/spool")
+    url = fake.serve()
+    host, port = url.rsplit("/", 1)[1].split(":")
+    with open(f"{tmp}/.env", "w") as fp:
+        fp.write(f"API_HOST={host}\nAPI_PORT={port}\n")
 serve = ["serve", "--env", f"{tmp}/.env", "--single-run", "--device", "cpu",
          "--cache-dir", f"{tmp}/cache"]
-fake.add_hmm("d.hmm", open(f"{tmp}/s.hmm", "rb").read())
-assert main(serve) == 0
-db = next(iter(fake.dbs.values()))
-fake.add_scan(db.id, [("r1", read)])
-assert main(serve) == 0
-fake.shutdown()
-assert all(j.state == "done" for j in fake.jobs.values()), fake.jobs
-assert p.accession in fake.products[-1]
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "deciphon_tpu"))
-assert not bad, bad
+try:
+    with step("serve --single-run: press job"):
+        fake.add_hmm("d.hmm", open(f"{tmp}/s.hmm", "rb").read())
+        assert main(serve) == 0, "rc"
+        jobs = {j.state for j in fake.jobs.values()}
+        assert jobs == {"done"}, fake.jobs
+    with step("serve --single-run: scan job"):
+        db = next(iter(fake.dbs.values()))
+        fake.add_scan(db.id, [("r1", read)])
+        assert main(serve) == 0, "rc"
+        assert all(j.state == "done" for j in fake.jobs.values()), fake.jobs
+        assert p.accession in fake.products[-1], fake.products
+finally:
+    fake.shutdown()
+with step("no jax at the end"):
+    no_jax("after every step")
 print("NO-JAX OK")
 """
 
@@ -108,17 +141,29 @@ def test_port_sources_import_no_jax_package():
 
 
 def test_port_never_imports_jax(tmp_path):
-    env = dict(os.environ)
-    env["OMP_NUM_THREADS"] = "1"  # small tensors; workers run in parallel
-    env["PYTHONPATH"] = os.pathsep.join(
-        [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p]
-    )
+    """Press, scan (Viterbi, forward with N, --best-hit, --shard) and two
+    serve --single-run jobs in a fresh interpreter, with no module of
+    jax or deciphon_tpu loaded at any step.  The environment is fixed
+    (nothing of the caller's: no PYTHONPATH entries that could preload
+    jax, no scheduler or daemon settings), with its own home, temp and
+    cache directories."""
+    home, tmp, work = tmp_path / "home", tmp_path / "tmp", tmp_path / "work"
+    for d in (home, tmp, work):
+        d.mkdir()
+    env = {
+        "PATH": os.environ.get("PATH", os.defpath),
+        "HOME": str(home),
+        "PYTHONPATH": REPO,
+        "OMP_NUM_THREADS": "1",  # small tensors; workers run in parallel
+        "TMPDIR": str(tmp),
+        "XDG_CACHE_HOME": str(home / ".cache"),
+    }
     proc = subprocess.run(
-        [sys.executable, "-c", SCRIPT, str(tmp_path)],
+        [sys.executable, "-c", SCRIPT, str(work)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "NO-JAX OK" in proc.stdout
+    assert "NO-JAX OK" in proc.stdout, proc.stdout + proc.stderr
 
 
 @pytest.fixture(scope="module")

@@ -129,6 +129,40 @@ def test_press_job_lifecycle(sched, worker):
     assert all(b.tiles is not None for b in tables.blocks)
 
 
+def test_press_prewarm_switch_off(sched, worker, monkeypatch):
+    """DCP_PRESS_PREWARM=0 (the JAX daemon's switch): the press job
+    builds no table store and starts no thread; the first scan builds
+    the tables itself."""
+    import threading
+
+    from deciphon_tpu_torch.ops.scan_engine import Tables
+
+    fake, _ = sched
+    prepared, started = [], []
+    orig_prepare, orig_start = Tables.prepare, threading.Thread.start
+
+    def prepare(self):
+        prepared.append(self)
+        return orig_prepare(self)
+
+    def start(self):
+        started.append(self.name)
+        return orig_start(self)
+
+    monkeypatch.setattr(Tables, "prepare", prepare)
+    monkeypatch.setattr(threading.Thread, "start", start)
+    monkeypatch.setenv("DCP_PRESS_PREWARM", "0")
+    db_meta, db = _pressed(fake, worker)
+    assert [j.state for j in fake.jobs.values()] == ["done"]
+    assert prepared == [] and "press-prewarm" not in started
+    assert worker._prewarm_thread is None and worker._tables == {}
+    scan = fake.add_scan(db_meta.id, [("planted", consensus_dna(db.profile(1)))])
+    assert worker.run_one()
+    assert fake.jobs[scan.job_id].state == "done"
+    assert len(prepared) == 1 and "press-prewarm" not in started
+    assert db.profile(1).accession in fake.products[-1]
+
+
 def test_full_press_then_scan_lifecycle(sched, worker):
     fake, _ = sched
     db_meta, db = _pressed(fake, worker)
