@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of the deciphon_tpu_torch scan path (one NVIDIA GPU).
 
-    python3 chip_smoke.py    # needs one CUDA card; ~6 min on an H100
+    python3 chip_smoke.py              # needs one CUDA card; ~7 min on an H100
+    python3 chip_smoke.py --menu-only  # phases 1-2, then stop
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name, power limit and maximum SM clock) and
@@ -12,11 +13,13 @@ Phases, each fatal on failure:
      torch version on the card, over a menu of core sizes, read lengths
      and flags on base-4 tables, and on base-5 ("N") and base-6 ("N",
      "R") tables with N at read positions 1-5 and R mid-read; every
-     block holds a profile with two dead DD links; then reads of two
-     copies of a strong domain (K 40 and 129, each copy > 100 nats
-     over the null) on the forward kernel under all four flag pairs.
-     Tolerance: 1e-4 + 1e-6 * |plain| (max), 1e-3 + 1e-5 * |plain|
-     (logsumexp);
+     block holds a profile with two dead DD links, and every launch plan
+     of the Viterbi kernel (viterbi_cuda.viterbi_plan) runs; then reads
+     of two copies of a strong domain (K 40, 129 and 512, each copy > 100
+     nats over the null) on the forward kernel under all four flag
+     pairs, held against the f32 plain version up to 1000 nt and the
+     f64 one above.  Tolerance: 1e-4 + 1e-6 * |plain| (max), 1e-3 +
+     1e-5 * |plain| (logsumexp);
   3. the main path at a Pfam-shaped size: press a synthetic 1024-profile
      .hmm, then scan one mixed read set (256 ACGT reads, 24 reads with N,
      8 with N and R) under Viterbi and under --forward, each with the
@@ -28,7 +31,8 @@ Phases, each fatal on failure:
      warm scan seconds and GCUPS are timed with CUDA events, and each
      kernel's bound is computed from the same inputs: the larger of its
      bytes over 3.35 TB/s and its operations over the card's rates (see
-     `bound`);
+     `bound`); the ACGT class under Viterbi also prints one line per
+     block (width, profiles, launch plan, ms, share of its bound);
   4. the profile-sharded engine on the same DB and reads: a mesh over
      every visible card, or on one card ["cuda:0"] * 4 as 2 read shards x
      2 profile shards.  Viterbi and forward scans and best hits: every
@@ -72,6 +76,17 @@ KERNEL_REPLACES = "deciphon_tpu/ops/viterbi_pallas.py:178"
 KERNEL_NAME = {"max": "viterbi_max", "logsumexp": "viterbi_lse"}
 ALGO = {"max": "viterbi", "logsumexp": "forward"}
 MENU_K = (8, 129, 768, 896, 1536, 2048, 4096)
+# Viterbi only: the rest of the kernel's launch plans
+# (viterbi_cuda.viterbi_plan), each boundary with the width after it:
+# one warp of 2, 3, 4, 6, 7, 8 nodes a lane with rings in registers (K
+# 40 -> 64, 96, 128, 192, 193 -> 224, 256; 8 and 129 give 1 and 5), of
+# 9..12 with rings in shared memory (257 -> 288, 320, 352, 384), the
+# first CTA plan (385 -> 416), the last plan of 4 nodes a lane (1024)
+# and the first of 8 (1025 -> 1056), the first 16-warp plan
+# (2049 -> 2080); two flag pairs each (the flags change only the
+# specials, which every plan computes alike)
+VIT_MENU_K = (40, 96, 128, 192, 193, 256, 257, 320, 352, 384, 385, 1024,
+              1025, 2049)
 MENU_LENS = (0, 1, 2, 4, 5, 27, 254, 255, 256, 600)  # 0: a padding row
 FLAGS = ((True, False), (False, False), (True, True), (False, True))
 # extended tables: base 5 and base 6 over a shorter K menu, two flag pairs
@@ -80,7 +95,12 @@ EXT_K = (8, 129, 896, 2048, 4096)
 EXT_FLAGS = ((True, False), (False, True))
 # two copies of a peaked profile's consensus in one read, forward only,
 # all four flag pairs
-TWO_COPY_K = (40, 129)  # NPT 4 and 8; reads up to 814 nt
+TWO_COPY_K = (40, 129, 512)  # NPT 4 and 8; reads up to 814 nt, and 3112
+# Reads longer than this hold forward against the plain version in f64:
+# the f32 plain version's own rounding grows with read length (logaddexp
+# rounds to f32's step at |score| ~ 1e3 and the steps accumulate), so on
+# 3112-nt reads it is no yardstick at the kernel's tolerance.
+F64_YARDSTICK_NT = 1000
 NPROF = 1024
 NREADS = 256  # ACGT reads
 NPLANTED = 8  # of them consensus reads of known profiles
@@ -93,12 +113,24 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # instruction throughput, compute capability 9.0): 128 f32 lanes, 16
 # special-function (MUFU) lanes; the H100 SXM has 132 SMs
 SMS, F32_LANES, MUFU_LANES = 132, 128, 16
-# Viterbi: f32 operations of the recurrence per (node, position), counted
-# from csrc/viterbi.cu: 18 adds and one NEG clamp (an fmaxf), and 16
-# joins of one fmaxf each (8 of the match/insert in-flow, 1 D-chain
-# prefix, 1 shifted prefix, 2 for VE, 2 in the core out-flow, 2 in the
-# ring writes), all at PEAK_F32
-MAX_OPS = 19 + 16
+# Viterbi: f32 operations of the recurrence per (core node, position), as
+# viterbi_pallas._kernel (semiring "max", position() :626-713) and
+# viterbi_cuda.scores_plain write it, whatever kernel runs it; a join is
+# one max, a shift moves data and costs nothing:
+#   match in-flow   ring_cs[slot] + em_m, 5 lookbacks: 5 adds, 4 joins   9
+#   insert in-flow  ring_ic[slot] + em_i, the same:    5 adds, 4 joins   9
+#   D-chain         accM + a_base (add), the prefix scan's join at this
+#                   node, cdd + shifted prefix (add), the NEG clamp     4
+#   VE              join(accM, VD), the reduce's join at this node       2
+#   core out-flow   accM + mm_out, accI + im_out, VD + dm_out: 3 adds,
+#                   2 joins                                             5
+#   ring_cs write   VB + entry (add), join with the shifted core        2
+#   ring_ic write   accM + mi, accI + ii (adds), 1 join                 3
+# = 18 adds + 15 joins + 1 clamp.  No FMA: each is one f32 instruction at
+# the issue rate SMS * F32_LANES * clock.  The specials (N, J, C, R, VB,
+# VT) are per (read, profile, position), not per node, and are left out
+# as in the forward count.
+MAX_OPS = 18 + 15 + 1
 # Forward: the recurrence's work per (node, position) in probability
 # space, whatever kernel runs it: 15 FMAs (5 match and 5 insert in-flow
 # accumulations, 1 D-chain step, 2 in the core out-flow, 1 in each ring
@@ -175,12 +207,17 @@ def phase_kernel_menu(dev) -> dict:
 
     worst = dict.fromkeys(TOL, 0.0)
     ncells = 0
-    plan = [((), MENU_K, FLAGS)] + [(c, EXT_K, EXT_FLAGS) for c in EXT_CODES]
-    for codes, ks, flags in plan:
+    menu = ([((), K, FLAGS, tuple(TOL)) for K in MENU_K]
+            + [((), K, EXT_FLAGS, ("max",)) for K in VIT_MENU_K]
+            + [(c, K, EXT_FLAGS, tuple(TOL)) for c in EXT_CODES
+               for K in EXT_K])
+    plans = set()
+    for codes in dict.fromkeys(m[0] for m in menu):
         reads = menu_reads(codes)
         eidx = torch.from_numpy(eidx_of(reads, max(MENU_LENS), codes)).to(dev)
         slen = torch.tensor(MENU_LENS, dtype=torch.int32, device=dev)
-        for K in ks:
+        for K, flags, semirings in ((m[1], m[2], m[3]) for m in menu
+                                    if m[0] == codes):
             # ragged block: cores below the padded width leave padding
             # nodes; the last profile repeats the widest with two dead DD
             # links inside its core (the -1e4 clamp of the D-chain)
@@ -193,7 +230,8 @@ def phase_kernel_menu(dev) -> dict:
             profiles.append(replace(profiles[-1], dd_in=dd))
             blk = vc.CudaBlock.from_profiles(profiles, device=dev,
                                              codes=codes)
-            for semiring in TOL:
+            plans.add(vc.viterbi_plan(blk.kpad)[:3])
+            for semiring in semirings:
                 for mh, h3 in flags:
                     alt, null = vc.scores(blk, eidx, slen, mh, h3, semiring)
                     palt, pnull = vc.scores_plain(blk, eidx, slen, mh, h3,
@@ -205,8 +243,10 @@ def phase_kernel_menu(dev) -> dict:
                                   torch.isfinite(null[1:]).all())
                     pad_row = bool((alt[0] == NEG).all() and
                                    (null[0] == NEG).all())
+                    shape = (f" plan {plan_str(vc.viterbi_plan(blk.kpad))}"
+                             if semiring == "max" else "")
                     print(f"menu {codes or 'ACGT'} ntab={blk.fm.shape[1]} "
-                          f"K={K} kpad={blk.kpad} {semiring} "
+                          f"K={K} kpad={blk.kpad}{shape} {semiring} "
                           f"multi_hits={mh} hmmer3_compat={h3}: "
                           f"max|d| alt {da:.3g} null {dn:.3g}")
                     if not (finite and pad_row) or max(ea, en) > 0:
@@ -218,10 +258,17 @@ def phase_kernel_menu(dev) -> dict:
                     worst[semiring] = max(worst[semiring], da, dn)
                     ncells += 1
             del blk
+    # every launch plan of the Viterbi kernel ran
+    every = {p[:3] for p in map(vc.viterbi_plan, range(32, 4097, 32))}
+    if plans != every:
+        raise SystemExit(f"menu missed Viterbi plans {every - plans}")
     # reads of two copies of a strong domain: the first copy's paths
     # end > 100 nats above a fresh start from N at the second (beyond
-    # f32's range), and under multi_hits = false only N starts a hit
+    # f32's range), and under multi_hits = false only N starts a hit.
+    # Up to F64_YARDSTICK_NT the kernel is held against the f32 plain
+    # version, above it against the f64 one; both distances are printed.
     rng = np.random.default_rng(11)
+    semiring = "logsumexp"  # the Viterbi kernel has no scales
     for K in TWO_COPY_K:
         prof = build_profile(random_h3(K, K, peak=0.9))
         reads = two_copy_reads(consensus_dna(prof), rng)
@@ -230,31 +277,51 @@ def phase_kernel_menu(dev) -> dict:
         slen = torch.tensor(lens, dtype=torch.int32, device=dev)
         blk = vc.CudaBlock.from_profiles(
             [prof, sample_profile(K, max(2, K // 2))], device=dev)
-        semiring = "logsumexp"  # the Viterbi kernel has no scales
+        f64 = max(lens) > F64_YARDSTICK_NT
         for mh, h3 in FLAGS:
-            alt, null = vc.scores(blk, eidx, slen, mh, h3, semiring)
-            palt, pnull = vc.scores_plain(blk, eidx, slen, mh, h3,
-                                          semiring)
+            got = vc.scores(blk, eidx, slen, mh, h3, semiring)
+            plain = vc.scores_plain(blk, eidx, slen, mh, h3, semiring)
+            exact = vc.scores_plain(blk, eidx, slen, mh, h3, semiring,
+                                    dtype=torch.float64)
             torch.cuda.synchronize()
-            da, ea = max_excess(alt, palt, semiring)
-            dn, en = max_excess(null, pnull, semiring)
-            lrt = float(palt[0, 0] - pnull[0, 0])
-            print(f"two copies K={K} {semiring} multi_hits={mh} "
-                  f"hmmer3_compat={h3}: max|d| alt {da:.3g} null "
-                  f"{dn:.3g} (equal copies: alt - null {lrt:.0f} nats)")
-            finite = bool(torch.isfinite(alt).all() and
-                          torch.isfinite(null).all())
+            ref = exact if f64 else plain
+            (da, ea), (dn, en) = (max_excess(g.double(), r.double(),
+                                             semiring)
+                                  for g, r in zip(got, ref))
+            k64 = [float((g.double() - e).abs().max())
+                   for g, e in zip(got, exact)]
+            p64 = [float((p.double() - e).abs().max())
+                   for p, e in zip(plain, exact)]
+            lrt = float(plain[0][0, 0] - plain[1][0, 0])
+            print(f"two copies K={K} ({max(lens)} nt) {semiring} "
+                  f"multi_hits={mh} hmmer3_compat={h3}: max|d| vs "
+                  f"{'f64' if f64 else 'f32'} plain alt {da:.3g} null "
+                  f"{dn:.3g}; kernel vs f64 plain alt {k64[0]:.3g} null "
+                  f"{k64[1]:.3g}; f32 plain vs f64 plain alt {p64[0]:.3g} "
+                  f"null {p64[1]:.3g} (equal copies: alt - null {lrt:.0f} "
+                  "nats)")
+            finite = bool(torch.isfinite(got[0]).all() and
+                          torch.isfinite(got[1]).all())
             if not finite or max(ea, en) > 0:
-                per = (alt - palt).abs()[:, 0].tolist()
-                print("  per read: " + " ".join(f"{d:.2g}" for d in per))
+                per = (got[0].double() - ref[0].double()).abs()[:, 0]
+                print("  per read: " + " ".join(
+                    f"{d:.2g}" for d in per.tolist()))
                 raise SystemExit(f"{semiring} kernel disagrees with "
                                  f"plain on two copies, K={K}")
             worst[semiring] = max(worst[semiring], da, dn)
             ncells += 1
         del blk
     print(f"menu: all {ncells} cells within tolerance, max|d| "
-          + ", ".join(f"{s} {w:.3g}" for s, w in worst.items()))
+          + ", ".join(f"{s} {w:.3g}" for s, w in worst.items())
+          + f"; Viterbi plans run: {len(plans)}")
     return worst
+
+
+def plan_str(p) -> str:
+    """A Viterbi launch plan in a few characters: nodes a lane, warps per
+    read x reads per CTA, ring storage."""
+    return (f"npt{p.npt}/w{p.warps}x{p.reads}/"
+            f"{'reg' if p.reg_ring else 'smem'}")
 
 
 def two_copy_reads(cons: str, rng) -> list[str]:
@@ -328,12 +395,12 @@ def sm_clock_hz() -> float:
 
 
 def ops_seconds(semiring: str, clock: float) -> float:
-    """Least seconds per (node, position) on the card's arithmetic: for
-    forward the larger of its f32 time (FMAs at PEAK_F32 as two
-    operations each, other f32 instructions at the issue rate) and its
-    MUFU time."""
+    """Least seconds per core (node, position) on the card's arithmetic:
+    for Viterbi its f32 instructions at the issue rate; for forward the
+    larger of its f32 time (FMAs at PEAK_F32 as two operations each,
+    other f32 instructions at the issue rate) and its MUFU time."""
     if semiring == "max":
-        return MAX_OPS / PEAK_F32
+        return MAX_OPS / (SMS * F32_LANES * clock)
     f32 = 2 * FWD_FMA / PEAK_F32 + FWD_OTHER / (SMS * F32_LANES * clock)
     return max(f32, FWD_MUFU / (SMS * MUFU_LANES * clock))
 
@@ -350,16 +417,15 @@ def bound(nbytes: int, node_pos: int, semiring: str, clock: float):
 def launch_work(blk, eidx, slen, semiring: str,
                 nodes: int) -> tuple[int, int]:
     """(bytes, (node, position) cells) of one launch: each table, plane,
-    read and output byte once; at every read position, every padded node
-    for Viterbi (its bound as it was first set), the ``nodes`` core nodes
-    of the block's profiles for forward (the recurrence's own work,
-    whatever padding a kernel picks)."""
-    B, _, K = blk.fm.shape
+    read and output byte once; at every read position, the ``nodes``
+    core nodes of the block's profiles (the recurrence's own work,
+    whatever padding, lane fill or loads a kernel picks)."""
+    B = blk.fm.shape[0]
     S = eidx.shape[0]
     planes = blk.trans if semiring == "max" else blk.ptrans
     nbytes = 4 * (blk.fm.numel() + blk.fin.numel() + planes.numel()
                   + eidx.numel() + slen.numel() + 3 * S + 2 * S * B)
-    return nbytes, int(slen.sum()) * (B * K if semiring == "max" else nodes)
+    return nbytes, int(slen.sum()) * nodes
 
 
 def reset_launches() -> None:
@@ -521,6 +587,8 @@ def phase_main_path(dev, workdir: str, clock: float):
 
             p_ms = timed_ms(run_plain)
             k_ms = timed_ms(run_kernel, reps=3)
+            if semiring == "max" and not codes:
+                block_lines(engine, blks, eidx, slen, db, clock)
             c_bytes = c_cells = 0
             for b, blk in zip(engine.blocks, blks):
                 b_, c_ = launch_work(blk, eidx, slen, semiring,
@@ -584,6 +652,22 @@ def phase_main_path(dev, workdir: str, clock: float):
         del engine
         torch.cuda.empty_cache()
     return out, ctx
+
+
+def block_lines(engine, blks, eidx, slen, db, clock) -> None:
+    """One line per block of a class under Viterbi: padded width,
+    profiles, launch plan, kernel ms (min of 3, CUDA events) and the
+    share of that block's bound."""
+    from deciphon_tpu_torch.ops import viterbi_cuda as vc
+
+    for b, blk in zip(engine.blocks, blks):
+        ms = timed_ms(lambda blk=blk: vc.scores(blk, eidx, slen), reps=3)
+        nbytes, cells = launch_work(blk, eidx, slen, "max",
+                                    int(db.core_sizes[b.chunk].sum()))
+        b_ms, b_by = bound(nbytes, cells, "max", clock)
+        print(f"  block K={blk.kpad} B={blk.fm.shape[0]} plan "
+              f"{plan_str(vc.viterbi_plan(blk.kpad))}: {ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms by {b_by}, {100 * b_ms / ms:.1f}% of it")
 
 
 def scan_mesh():
@@ -759,9 +843,13 @@ def phase_daemon(ctx, workdir: str) -> dict:
     return launches
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
 
+    menu_only = argv == ["--menu-only"]
+    if argv and not menu_only:
+        print("usage: chip_smoke.py [--menu-only]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -782,6 +870,8 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
     menu_err = phase_kernel_menu(dev)
     print(f"menu done at {time.perf_counter() - t_start:.1f} s")
+    if menu_only:  # phases 1-2: the build and the menu, then stop
+        return 0
     # scratch for the synthetic DB and reads, inside the checkout
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "chip_smoke")
@@ -820,4 +910,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -72,7 +72,7 @@ constexpr double LN2 = 0.6931471805599453;
 constexpr int ZERO_X = -(1 << 28);
 
 // The launch shape, which a build may set to compare others
-// (ops/tune_forward_npt.py): the widest K run at 4 nodes a thread (one
+// (ops/tune_npt.py): the widest K run at 4 nodes a thread (one
 // warp up to K = 128), and the CTAs of 512 threads an SM must hold at
 // 4 nodes a thread (1: up to 128 registers; 2: at most 64).
 #ifndef DCP_FWD_NPT4_MAX_K

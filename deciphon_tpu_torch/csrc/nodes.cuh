@@ -1,7 +1,8 @@
 // Shared by the Hopper kernels (viterbi.cu, forward.cu): limits and the
-// float4 node-group loads and stores.  Each thread owns NPT consecutive
-// nodes (NPT a multiple of 4), so its group of one plane or table row is
-// NPT / 4 aligned float4s, coalesced along K across the warp.
+// node-group loads and stores.  Each thread owns NPT consecutive nodes;
+// for NPT a multiple of 4 its group of one plane or table row is NPT / 4
+// aligned float4s, coalesced along K across the warp (the *_nodes
+// helpers); the *_span helpers take any NPT.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,6 +46,59 @@ __device__ __forceinline__ void sts_nodes(float* p, const float (&v)[NPT]) {
   for (int g = 0; g < NPT / 4; ++g)
     reinterpret_cast<float4*>(p)[g] =
         make_float4(v[4 * g], v[4 * g + 1], v[4 * g + 2], v[4 * g + 3]);
+}
+
+// Any NPT (the Viterbi kernel's one-warp plans run NPT = K / 32 nodes a
+// lane, 1..12): the widest aligned vector that divides NPT, float4, float2
+// or scalar.  A group starts at k0 = lane * NPT of a K-aligned row, so
+// float2 groups are 8-byte aligned whenever NPT is even.
+template <int NPT>
+__device__ __forceinline__ void ldg_span(const float* __restrict__ p,
+                                         float (&v)[NPT]) {
+  if constexpr (NPT % 4 == 0) {
+    ldg_nodes<NPT>(p, v);
+  } else if constexpr (NPT % 2 == 0) {
+#pragma unroll
+    for (int g = 0; g < NPT / 2; ++g) {
+      const float2 x = __ldg(reinterpret_cast<const float2*>(p) + g);
+      v[2 * g] = x.x;
+      v[2 * g + 1] = x.y;
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < NPT; ++n) v[n] = __ldg(p + n);
+  }
+}
+
+template <int NPT>
+__device__ __forceinline__ void lds_span(const float* p, float (&v)[NPT]) {
+  if constexpr (NPT % 4 == 0) {
+    lds_nodes<NPT>(p, v);
+  } else if constexpr (NPT % 2 == 0) {
+#pragma unroll
+    for (int g = 0; g < NPT / 2; ++g) {
+      const float2 x = reinterpret_cast<const float2*>(p)[g];
+      v[2 * g] = x.x;
+      v[2 * g + 1] = x.y;
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < NPT; ++n) v[n] = p[n];
+  }
+}
+
+template <int NPT>
+__device__ __forceinline__ void sts_span(float* p, const float (&v)[NPT]) {
+  if constexpr (NPT % 4 == 0) {
+    sts_nodes<NPT>(p, v);
+  } else if constexpr (NPT % 2 == 0) {
+#pragma unroll
+    for (int g = 0; g < NPT / 2; ++g)
+      reinterpret_cast<float2*>(p)[g] = make_float2(v[2 * g], v[2 * g + 1]);
+  } else {
+#pragma unroll
+    for (int n = 0; n < NPT; ++n) p[n] = v[n];
+  }
 }
 
 // the launch's argument checks, shared by both entry points

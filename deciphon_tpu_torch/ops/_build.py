@@ -99,11 +99,15 @@ def _library() -> SimpleNamespace:
     )
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # (fm, fin, trans, eidx, seq_len, sp, t_EJ, t_EC, alt, nul,
-    #  S, B, K, ntab, Lp, stream), one entry point per semiring: the
-    #  Viterbi kernel (viterbi.cu) takes the log planes `trans`, the
-    #  forward kernel (forward.cu) the probability planes `ptrans`
+    #  S, B, K, ntab, Lp, [plan,] stream), one entry point per semiring:
+    #  the Viterbi kernel (viterbi.cu) takes the log planes `trans` and
+    #  its launch plan (npt, kernel_warps, reg_ring, warps, reads, smem;
+    #  viterbi_cuda.viterbi_plan), the forward kernel (forward.cu) the
+    #  probability planes `ptrans`
+    common = [p, p, p, p, p, p, f, f, p, p, i, i, i, i, i]
+    lib.dcp_viterbi_max.argtypes = common + [i] * 6 + [p]
+    lib.dcp_viterbi_lse.argtypes = common + [p]
     for fn in (lib.dcp_viterbi_max, lib.dcp_viterbi_lse):
-        fn.argtypes = [p, p, p, p, p, p, f, f, p, p, i, i, i, i, i, p]
         fn.restype = i
     lib.dcp_cuda_error_string.argtypes = [i]
     lib.dcp_cuda_error_string.restype = ctypes.c_char_p

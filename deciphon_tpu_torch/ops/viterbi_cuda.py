@@ -104,9 +104,9 @@ def _out_of(a: np.ndarray) -> np.ndarray:
     )
 
 
-def pack_trans(arrs: dict[str, np.ndarray]) -> np.ndarray:
+def pack_trans(arrs: dict[str, np.ndarray], dtype=np.float32) -> np.ndarray:
     """[B, NPLANES, K] log transition planes from destination-indexed
-    [B, K] f32 per-node vectors (already padded with NEG)."""
+    [B, K] per-node vectors (already padded with NEG), in ``dtype``."""
     dd = arrs["dd_in"]
     B = dd.shape[0]
     # Dead DD links clamp to a moderate floor, not ~NEG: the telescoped
@@ -117,8 +117,8 @@ def pack_trans(arrs: dict[str, np.ndarray]) -> np.ndarray:
     # (viterbi_pallas.py:799-811).
     dd_safe = np.maximum(dd, -1e4)
     dd_safe[:, 0] = 0.0
-    cdd = np.cumsum(dd_safe, axis=1, dtype=np.float64).astype(np.float32)
-    neg1 = np.full((B, 1), NEG, np.float32)
+    cdd = np.cumsum(dd_safe, axis=1, dtype=np.float64).astype(dtype)
+    neg1 = np.full((B, 1), NEG, dtype)
     md_next = np.concatenate([arrs["md_in"][:, 1:], neg1], axis=1)
     cdd_next = np.concatenate([cdd[:, 1:], cdd[:, -1:]], axis=1)
     a_base = np.maximum(md_next - cdd_next, NEG)
@@ -128,7 +128,7 @@ def pack_trans(arrs: dict[str, np.ndarray]) -> np.ndarray:
             _out_of(arrs["dm_in"]), arrs["mi"], arrs["ii"], a_base, cdd,
         ],
         axis=1,
-    ).astype(np.float32)
+    ).astype(dtype)
 
 
 def pack_prob_trans(arrs: dict[str, np.ndarray]) -> np.ndarray:
@@ -150,27 +150,29 @@ def pack_prob_trans(arrs: dict[str, np.ndarray]) -> np.ndarray:
     return np.exp(logp.astype(np.float64)).astype(np.float32)
 
 
-def pack_numpy_block(block) -> CudaBlock:
+def pack_numpy_block(block, dtype=np.float32) -> CudaBlock:
     """CPU CudaBlock from a host ProfileBlock (viterbi_torch's: numpy
     fields fm [B, K, ntab], fi, fn and the [B, K] transitions), padded
-    to a LANE multiple of nodes."""
-    fm = np.asarray(block.fm, np.float32)
+    to a LANE multiple of nodes; tables and log planes in ``dtype`` (f32
+    for the kernels; f64 for the plain version held against the f64
+    oracle), probability planes in f32."""
+    fm = np.asarray(block.fm, dtype)
     B, K, ntab = fm.shape
     Kp = pad_width(K)
-    fm_p = np.full((B, ntab, Kp), NEG, np.float32)
+    fm_p = np.full((B, ntab, Kp), NEG, dtype)
     fm_p[:, :, :K] = fm.transpose(0, 2, 1)
     fin = np.stack(
-        [np.asarray(block.fi, np.float32), np.asarray(block.fn, np.float32)],
+        [np.asarray(block.fi, dtype), np.asarray(block.fn, dtype)],
         axis=1,
     )
     arrs = {}
     for name in TRANS_NAMES:
-        a = np.full((B, Kp), NEG, np.float32)
-        a[:, :K] = np.asarray(getattr(block, name), np.float32)
+        a = np.full((B, Kp), NEG, dtype)
+        a[:, :K] = np.asarray(getattr(block, name), dtype)
         arrs[name] = a
     return CudaBlock(
         torch.from_numpy(fm_p), torch.from_numpy(fin),
-        torch.from_numpy(pack_trans(arrs)),
+        torch.from_numpy(pack_trans(arrs, dtype)),
         torch.from_numpy(pack_prob_trans(arrs)),
     )
 
@@ -214,6 +216,80 @@ def pack_compact(profiles, kpad: int | None = None, codes: tuple = ()):
     return emis, qp, ine, inq, pack_trans(arrs), pack_prob_trans(arrs), eps
 
 
+# The Viterbi kernel's instantiations (csrc/viterbi.cu
+# DCP_VITERBI_KERNELS): (nodes a lane, warps bound, rings in registers);
+# a warps bound of 1 is a one-warp kernel, K = 32 * nodes a lane, with up
+# to MAX_READS reads (one warp each) a CTA.
+VITERBI_KERNELS = (
+    (1, 1, True), (2, 1, True), (3, 1, True), (4, 1, True), (5, 1, True),
+    (6, 1, True), (7, 1, True), (8, 1, True), (9, 1, False),
+    (10, 1, False), (11, 1, False), (12, 1, False), (4, 8, False),
+    (8, 8, False), (8, 16, False),
+)
+MAX_READS = 8
+# resident CTAs an SM must hold under the kernels' __launch_bounds__
+# (csrc/viterbi.cu's defaults of DCP_VIT_WARP_MINB and DCP_VIT_CTA_MINB,
+# the latter for the 4-node CTA kernel; 1 for the others)
+WARP_MINB, CTA_MINB = 1, 2
+# the launch plan's defaults (ops/tune_npt.py sweeps them on the card)
+WARP_MAX_K = 384  # one warp per (read, profile) up to this width
+READS_PER_CTA = 4  # reads (warps) per CTA of the one-warp plans
+
+
+class ViterbiPlan(NamedTuple):
+    """Launch shape of the Viterbi kernel for one padded width."""
+
+    npt: int  # consecutive nodes a lane
+    kernel_warps: int  # the instantiation's warps bound; 1: one-warp kernel
+    reg_ring: bool  # lookback rings in registers (else shared memory)
+    warps: int  # warps per (read, profile)
+    reads: int  # reads per CTA
+    threads: int  # threads per CTA
+    smem: int  # dynamic shared bytes per CTA (the rings, if not in registers)
+    regs: int  # registers a thread may take under its __launch_bounds__
+
+    def grid(self, S: int, B: int) -> tuple[int, int]:
+        """(x, y) CTAs for S reads and B profiles."""
+        return -(-S // self.reads), B
+
+
+def viterbi_plan(K: int, warp_max_k: int = WARP_MAX_K,
+                 reads: int = READS_PER_CTA) -> ViterbiPlan:
+    """The Viterbi kernel's launch shape for padded width K (a multiple
+    of LANE up to MAX_K):
+      - K <= warp_max_k (at most 384): one warp per (read, profile),
+        K / 32 nodes a lane, ``reads`` reads a CTA, no barrier, rings in
+        registers up to 8 nodes a lane and in shared memory above;
+      - K <= 1024: a CTA of ceil(K / 128) warps per read, 4 nodes a lane;
+      - wider: 8 nodes a lane, up to 8 warps (K <= 2048) or 16
+        (K <= 4096).
+    CTA plans keep their rings in shared memory.  The planes are in
+    registers on every plan.  The defaults are the card's best of
+    ops/tune_npt.py's sweep (PERF.md)."""
+    if K % LANE or not 0 < K <= MAX_K:
+        raise ValueError(f"K={K}: need a multiple of {LANE} up to {MAX_K}")
+    if not 1 <= reads <= MAX_READS:
+        raise ValueError(f"reads={reads}: need 1..{MAX_READS}")
+    if K <= warp_max_k and K // LANE <= 12:
+        # 10 x npt more registers for the rings fit up to 8 nodes a lane
+        npt, bound, warps = K // LANE, 1, 1
+        ring = npt <= 8
+    else:
+        reads, ring = 1, False
+        npt, bound = (4, 8) if K <= 1024 else (8, 8 if K <= 2048 else 16)
+        warps = -(-K // (LANE * npt))
+    assert (npt, bound, ring) in VITERBI_KERNELS
+    cta_bound = LANE * (MAX_READS if bound == 1 else bound)
+    minb = (WARP_MINB if bound == 1 else
+            CTA_MINB if (npt, bound) == (4, 8) else 1)
+    return ViterbiPlan(
+        npt=npt, kernel_warps=bound, reg_ring=ring, warps=warps,
+        reads=reads, threads=LANE * warps * reads,
+        smem=0 if ring else reads * 2 * 5 * K * 4,
+        regs=min(255, 65536 // (cta_bound * minb)),
+    )
+
+
 # rows of the specials ring (VB enters the DP only through ring_cs)
 S_N, S_J, S_C, S_E, S_R = range(5)
 
@@ -237,8 +313,12 @@ def scores_plain(
     multi_hits: bool = True,
     hmmer3_compat: bool = False,
     semiring: str = "max",
+    dtype: torch.dtype = torch.float32,
 ):
-    """Plain torch version of the kernel: (alt [S, B], null [S, B]) f32.
+    """Plain torch version of the kernel: (alt [S, B], null [S, B]) in
+    ``dtype``: f32, the kernels' width, or f64, which casts the block's
+    tables and planes and runs every buffer and special transition in
+    f64 (the yardstick for long reads, where f32 rounding accumulates).
 
     The recurrence of viterbi_pallas._kernel, batched over [S reads,
     B profiles, K nodes] with a Python loop over positions: a 5-slot
@@ -249,24 +329,24 @@ def scores_plain(
     cummax; under "logsumexp" they are logaddexp, logsumexp and
     logcumsumexp.  The NEG clamp of the D-chain is the same in both."""
     join, red, cum = _semiring(semiring)
-    fm, fin, trans = blk.fm, blk.fin, blk.trans
+    fm, fin, trans = (t.to(dtype) for t in (blk.fm, blk.fin, blk.trans))
     B, _, K = fm.shape
     S = eidx.shape[0]
     dev = fm.device
     seq_len = seq_len.to(dev)
     eidx = eidx.to(dev).long()
-    xt = specials(seq_len, multi_hits, hmmer3_compat)
+    xt = specials(seq_len, multi_hits, hmmer3_compat, dtype)
     t_NN, t_NB, t_RR = (xt[k][:, None] for k in ("NN", "NB", "RR"))
     t_EJ, t_EC = xt["EJ"], xt["EC"]
     entry, mm_out, im_out, dm_out, mi, ii, a_base, cdd = trans.unbind(1)
 
-    negk = torch.full((S, B, K), NEG, dtype=torch.float32, device=dev)
-    neg1 = torch.full((S, B, 1), NEG, dtype=torch.float32, device=dev)
+    negk = torch.full((S, B, K), NEG, dtype=dtype, device=dev)
+    neg1 = torch.full((S, B, 1), NEG, dtype=dtype, device=dev)
     # position 0: S -> B -> entry (VB[0] = t_NB), every other slot dead
     ring_cs = [t_NB[:, :, None] + entry] + [negk] * 4
     ring_ic = [negk] * 5
-    ring_s = [torch.full((5, S, B), NEG, device=dev)] * 5
-    alt = torch.full((S, B), NEG, dtype=torch.float32, device=dev)
+    ring_s = [torch.full((5, S, B), NEG, dtype=dtype, device=dev)] * 5
+    alt = torch.full((S, B), NEG, dtype=dtype, device=dev)
     null = alt.clone()
     lookback = torch.arange(1, 6, device=dev)[:, None, None]
     Lmax = min(int(seq_len.max()), eidx.shape[1]) if S else 0
@@ -284,7 +364,7 @@ def scores_plain(
         sp5 = torch.stack([ring_s[(i - l) % 5] for l in range(1, 6)])
         en5 = em_in[:, 1].permute(2, 1, 0)  # [5, S, B]
         # start gate: position i-l == 0 (the S state) only when l == i
-        start5 = torch.where(lookback == i, 0.0, NEG)
+        start5 = torch.where(lookback == i, 0.0, NEG).to(dtype)
         accN = red(join(sp5[:, S_N], start5) + t_NN + en5, 0)
         accJ = red(join(sp5[:, S_E] + t_EJ, sp5[:, S_J]) + t_NN + en5, 0)
         accC = red(join(sp5[:, S_E] + t_EC, sp5[:, S_C]) + t_NN + en5, 0)
@@ -328,7 +408,11 @@ def scores(
     return _launch(blk, eidx, seq_len, multi_hits, hmmer3_compat, semiring)
 
 
-def _launch(blk, eidx, seq_len, multi_hits, hmmer3_compat, semiring):
+def _launch(blk, eidx, seq_len, multi_hits, hmmer3_compat, semiring,
+            plan: ViterbiPlan | None = None):
+    """Launch the kernel of ``semiring`` on the card; ``plan`` replaces
+    the Viterbi kernel's launch shape (by default ``viterbi_plan(K)``),
+    as ops/tune_npt.py does to compare shapes."""
     from deciphon_tpu_torch.ops import _build
 
     fm, fin = blk.fm, blk.fin
@@ -366,15 +450,22 @@ def _launch(blk, eidx, seq_len, multi_hits, hmmer3_compat, semiring):
     if S == 0 or B == 0:
         return alt, null
     lib = _build.library()
-    kernel = lib.dcp_viterbi_max if semiring == "max" else lib.dcp_viterbi_lse
+    args = (
+        fm.data_ptr(), fin.data_ptr(), trans.data_ptr(),
+        eidx.data_ptr(), seq_len.data_ptr(), sp.data_ptr(),
+        ctypes.c_float(xt["EJ"]), ctypes.c_float(xt["EC"]),
+        alt.data_ptr(), null.data_ptr(), S, B, K, ntab, Lp,
+    )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = kernel(
-            fm.data_ptr(), fin.data_ptr(), trans.data_ptr(),
-            eidx.data_ptr(), seq_len.data_ptr(), sp.data_ptr(),
-            ctypes.c_float(xt["EJ"]), ctypes.c_float(xt["EC"]),
-            alt.data_ptr(), null.data_ptr(), S, B, K, ntab, Lp, stream,
-        )
+        if semiring == "max":
+            p = plan or viterbi_plan(K)
+            rc = lib.dcp_viterbi_max(
+                *args, p.npt, p.kernel_warps, int(p.reg_ring), p.warps,
+                p.reads, p.smem, stream,
+            )
+        else:
+            rc = lib.dcp_viterbi_lse(*args, stream)
     if rc != 0:
         raise RuntimeError(
             f"viterbi kernel ({semiring}) launch failed: "

@@ -53,12 +53,13 @@ def _clamp(a, dtype=np.float32) -> np.ndarray:
 
 def build_profile_block(
     profiles: list[ProteinProfile], kpad: int | None = None,
-    codes: tuple | None = None,
+    codes: tuple | None = None, dtype=np.float32,
 ) -> ProfileBlock:
     """Stack + pad profiles into a host block of fragment tables (the f64
     host tables of ProteinProfile.fragment_tables, clamped to NEG and
-    cast to f32): base 4, or base 4+len(codes) for reads holding the
-    IUPAC ``codes`` (ntab = 1365, 3906, 9331, ... rows)."""
+    cast to ``dtype``, f32 unless the caller keeps f64): base 4, or base
+    4+len(codes) for reads holding the IUPAC ``codes`` (ntab = 1365,
+    3906, 9331, ... rows)."""
     B = len(profiles)
     K = max(p.core_size for p in profiles)
     if kpad is not None:
@@ -67,18 +68,18 @@ def build_profile_block(
     codes = tuple(codes) if codes is not None else ()
     base = 4 + len(codes)
     ntab = frag_layout(base)[1] + 1
-    fm = np.full((B, K, ntab), NEG, np.float32)
-    fi = np.empty((B, ntab), np.float32)
-    fn = np.empty((B, ntab), np.float32)
-    arrs = {n: np.full((B, K), NEG, np.float32) for n in TRANS_NAMES}
+    fm = np.full((B, K, ntab), NEG, dtype)
+    fi = np.empty((B, ntab), dtype)
+    fn = np.empty((B, ntab), dtype)
+    arrs = {n: np.full((B, K), NEG, dtype) for n in TRANS_NAMES}
     core = np.empty(B, np.int32)
     for b, p in enumerate(profiles):
         fmat, fins, fnull = p.fragment_tables(base=base, codes=codes)
-        fm[b, : p.core_size] = _clamp(fmat)
-        fi[b] = _clamp(fins)
-        fn[b] = _clamp(fnull)
+        fm[b, : p.core_size] = _clamp(fmat, dtype)
+        fi[b] = _clamp(fins, dtype)
+        fn[b] = _clamp(fnull, dtype)
         for n in TRANS_NAMES:
-            arrs[n][b, : p.core_size] = _clamp(getattr(p, n))
+            arrs[n][b, : p.core_size] = _clamp(getattr(p, n), dtype)
         core[b] = p.core_size
     return ProfileBlock(fm=fm, fi=fi, fn=fn, core_size=core, **arrs)
 
@@ -97,19 +98,22 @@ def end_fragment_indices(fidx: np.ndarray, base: int = 4) -> np.ndarray:
     return out
 
 
-def specials(seq_len: torch.Tensor, multi_hits: bool, hmmer3_compat: bool):
-    """Length-dependent special transitions per read, f32 tensors [S].
+def specials(seq_len: torch.Tensor, multi_hits: bool, hmmer3_compat: bool,
+             dtype: torch.dtype = torch.float32):
+    """Length-dependent special transitions per read, tensors [S] of
+    ``dtype`` (f32 for the kernels).
 
     Mirrors protein_profile_setup (reference src/model/protein_profile.c:
     155-216) and viterbi_jax._specials.  EJ and EC do not depend on the
     length and come back as floats.  Length-0 rows (batch padding) are
     scored as length 1; they never reach the capture at i == seq_len."""
-    L = seq_len.to(torch.float32).clamp_min(1.0)
+    L = seq_len.to(dtype).clamp_min(1.0)
     q = 0.5 if multi_hits else 0.0
     log_q = float(np.log(0.5)) if multi_hits else NEG
     denom = torch.log(L + (2.0 + q / (1.0 - q)))
     lp = torch.log(L) - denom
-    l1p = float(np.log(np.float32(2.0 + q / (1.0 - q)))) - denom
+    real = np.float32 if dtype == torch.float32 else np.float64
+    l1p = float(np.log(real(2.0 + q / (1.0 - q)))) - denom
     lr = torch.log(L) - torch.log(L + 1.0)
     nn = torch.zeros_like(lp) if hmmer3_compat else lp
     return dict(
