@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the deciphon_tpu_torch scan path (one NVIDIA GPU).
 
-    python3 chip_smoke.py              # needs one CUDA card; ~7 min on an H100
+    python3 chip_smoke.py              # needs one CUDA card; ~8 min on an H100
     python3 chip_smoke.py --menu-only  # phases 1-2, then stop
 
 Phases, each fatal on failure:
@@ -45,10 +45,28 @@ Phases, each fatal on failure:
      288 reads and a DCP_BEST_HIT=1 scan job, whose products must equal
      phase 3's in-process hits (logliks within 1e-4 + 1e-6 * |x|) and
      best hits; every planted read must hit, and the kernel must have
-     been launched.  A failed job is fatal.
+     been launched.  A failed job is fatal;
+  6. the multi-process scan (parallel/distributed.py): two worker
+     processes (this script with --dist-worker) join a gloo process group
+     on a free localhost port (DCP_COORDINATOR, DCP_NUM_PROCS=2,
+     DCP_PROC_ID), each on cuda:0 (one card) or a card of its own.  Each
+     runs worker_parity_check(), then scores its profile shard of phase
+     3's DB against phase 3's 256 ACGT reads under Viterbi through
+     global_viterbi_scores: every cell must equal phase 3's unsharded
+     kernel cell bit for bit, the two ranks together must cover every
+     cell once, and each rank must have launched the Viterbi kernel;
+  7. the host entry points and the trace: a standard (typeid-1) DB
+     scanned through the CLI with --device cuda, every row equal to
+     scan_standard's on the CPU (logliks within 1e-5); `info` on a
+     synthetic reference .dcp and `parity` on a synthetic .hmm (PARITY
+     OK); then one warm Viterbi scan of 32 of phase 3's reads with
+     DCP_PROFILE_DIR set: the Chrome trace must exist and name the
+     Viterbi kernel, and its kernel time by name and the device's idle
+     share of the traced window are printed.
 The last two lines are the card line and a JSON {"ok": true, ...}; the
 line before them is the JSON kernel table, which lists per kernel the
-launches of each path (scan, sharded, daemon) beside phase 3's.
+launches of each path (scan, sharded, daemon, distributed, traced)
+beside phase 3's.
 """
 
 from __future__ import annotations
@@ -139,8 +157,12 @@ MAX_OPS = 18 + 15 + 1
 # 2 adds for VE, 3 maxima for the values' scales) and 5 exponentials of
 # the gathered match entries on the MUFU pipe
 FWD_FMA, FWD_OTHER, FWD_MUFU = 15, 18, 5
-# the paths of phases 3-5, in the kernel table's "paths"
-PATHS = ("scan", "sharded", "daemon")
+# the paths of phases 3-7, in the kernel table's "paths"
+PATHS = ("scan", "sharded", "daemon", "distributed", "traced")
+NPROCS = 2  # phase 6's worker processes
+TRACE_READS = 32  # phase 7's traced scan
+# phase 7's standard DB: profiles and their state counts, and reads
+STD_PROFILES, STD_STATES, STD_READS = 64, (2, 12), 32
 
 
 def card_line() -> str:
@@ -353,7 +375,8 @@ def consensus_dna(prof) -> str:
     )
 
 
-def cli(*args) -> None:
+def cli(*args) -> str:
+    """Run the port's CLI in a subprocess; its stdout."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "deciphon_tpu_torch.cli.main", *args],
@@ -366,6 +389,7 @@ def cli(*args) -> None:
         )
     print(f"cli {args[0]}: {time.perf_counter() - t0:.1f} s: "
           f"{proc.stdout.strip().splitlines()[-1]}")
+    return proc.stdout
 
 
 def timed_ms(fn, reps: int = 1) -> float:
@@ -843,7 +867,280 @@ def phase_daemon(ctx, workdir: str) -> dict:
     return launches
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_distributed(ctx, workdir: str, dev) -> int:
+    """Viterbi launches of the workers' DB step, over both ranks."""
+    import torch
+
+    alt, null = ctx["scores"]["max"]
+    # the ACGT reads are phase 3's first NREADS, its scores in read order
+    np.savez(os.path.join(workdir, "dist_ref.npz"), alt=alt[:NREADS],
+             null=null[:NREADS])
+    torch.cuda.empty_cache()
+    port = free_port()
+    procs = []
+    try:
+        for rank in range(NPROCS):
+            env = dict(os.environ, DCP_COORDINATOR=f"127.0.0.1:{port}",
+                       DCP_NUM_PROCS=str(NPROCS), DCP_PROC_ID=str(rank))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-worker",
+                 workdir, dev.type],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True,
+            ))
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reports = []
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("dist-worker ")]
+        if p.returncode != 0 or not lines:
+            raise SystemExit(f"distributed rank {rank} failed "
+                             f"({p.returncode}):\n{out}\n{err}")
+        rep = json.loads(lines[-1].split(" ", 1)[1])
+        print(f"distributed rank {rep['rank']} on {rep['device']}: "
+              f"worker_parity_check {rep['parity_s']:.3f} s, "
+              f"{rep['parity_launches']} viterbi_max launches; DB step "
+              f"{rep['tiles']} tiles, {rep['launches']} viterbi_max "
+              f"launches, {rep['cells']} cells x (alt, null) equal phase "
+              f"3's bit for bit, {rep['db_s']:.3f} s (host clock, tables "
+              "included)")
+        reports.append(rep)
+    cells = sum(r["cells"] for r in reports)
+    if cells != NREADS * NPROF:
+        raise SystemExit(f"distributed ranks covered {cells} cells, want "
+                         f"{NREADS * NPROF}")
+    return sum(r["launches"] for r in reports)
+
+
+def dist_worker(workdir: str, device: str) -> int:
+    """One rank of phase 6 (run by phase_distributed)."""
+    import torch
+    import torch.distributed as dist
+
+    from deciphon_tpu_torch.db.format import TensorDB
+    from deciphon_tpu_torch.ops import viterbi_cuda as vc
+    from deciphon_tpu_torch.ops.scan_engine import ScanEngine, Tables
+    from deciphon_tpu_torch.parallel import distributed as pd
+    from deciphon_tpu_torch.utils.fasta import read_fasta
+
+    pd.initialize()
+    try:
+        rank = dist.get_rank()
+        reset_launches()
+        parity_s, _ = pd.worker_parity_check(device=device)
+        parity_launches = vc.LAUNCHES["max"]
+        db = TensorDB.load(os.path.join(workdir, "pfam_shaped.dtp"))
+        reads = [r for _, r in read_fasta(os.path.join(workdir, "reads.fa"))]
+        ref = np.load(os.path.join(workdir, "dist_ref.npz"))
+        order, eidx, slen = ScanEngine.host_batch(
+            [encode(r, ()) for r in reads[:NREADS]])
+        mesh = pd.global_scan_mesh(profile_axis=NPROCS, device=device)
+        # the engine's blocks (widths and members); no table is built here
+        blocks = Tables(db, device=mesh.devices[rank]).blocks
+        reset_launches()
+        t0 = time.perf_counter()
+        pieces, ntiles = [], 0
+        for blk in blocks:
+            profiles = [db.profile(int(i)) for i in blk.chunk]
+            tiles = pd.make_global_block(mesh, profiles, kpad=blk.kpad)
+            ntiles += len(tiles)
+            for rows, cols, alt, null in pd.global_viterbi_scores(
+                mesh, profiles, eidx, slen, dev_block=tiles,
+            ):
+                pieces.append((order[rows], blk.chunk[cols], alt, null))
+            del tiles
+        if device == "cuda":
+            torch.cuda.synchronize()
+        db_s = time.perf_counter() - t0
+        launches = vc.LAUNCHES["max"]
+        if launches == 0 and device == "cuda":
+            raise SystemExit(f"rank {rank}: no viterbi_max launch")
+        cells = 0
+        for rows, cols, alt, null in pieces:
+            cell = np.ix_(rows, cols)
+            for name, got in (("alt", alt), ("null", null)):
+                want = ref[name][cell]
+                got = got.cpu().numpy()
+                if not np.array_equal(got, want):
+                    d = float(np.abs(got - want).max())
+                    raise SystemExit(f"rank {rank}: {name} differs from "
+                                     f"phase 3's cells, max|d| {d}")
+            cells += len(rows) * len(cols)
+        dist.barrier()
+        print("dist-worker " + json.dumps(dict(
+            rank=rank, device=str(mesh.devices[rank]), parity_s=parity_s,
+            parity_launches=parity_launches, tiles=ntiles,
+            launches=launches, cells=cells, db_s=db_s)), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_standard_dcp_parity(dev, workdir: str) -> None:
+    """A standard scan through the CLI on the card against the CPU plain
+    path, `info` on a reference .dcp and `parity` on a .hmm."""
+    import msgpack
+
+    from deciphon_tpu_torch.db import dcp
+    from deciphon_tpu_torch.db.standard_db import write_standard_db
+    from deciphon_tpu_torch.models.h3writer import random_h3, write_h3
+    from deciphon_tpu_torch.models.standard import sample_standard
+    from deciphon_tpu_torch.ops.viterbi_standard import scan_standard
+
+    rng = np.random.default_rng(5)
+    profiles = [sample_standard(s + 1, int(rng.integers(*STD_STATES)))
+                for s in range(STD_PROFILES)]
+    # two profiles that favour A and C runs, and reads holding them
+    for j, sym in ((3, 0), (17, 1)):
+        e = np.full(4, 0.01)
+        e[sym] = 0.97
+        profiles[j].alt_emis[:] = np.log(e)[None, :]
+    reads = ["".join(rng.choice(list("ACGT"), int(n)))
+             for n in rng.integers(20, 400, STD_READS - 2)]
+    reads += ["A" * 60, "C" * 45]
+    db = os.path.join(workdir, "standard.dtp")
+    fasta = os.path.join(workdir, "standard.fa")
+    tsv = os.path.join(workdir, "standard.tsv")
+    write_standard_db(db, profiles)
+    with open(fasta, "w") as fp:
+        fp.writelines(f">s{i + 1}\n{r}\n" for i, r in enumerate(reads))
+    cli("scan", db, fasta, "-o", tsv, "--device", dev.type)
+    rows = [ln.split("\t") for ln in open(tsv).read().splitlines()[1:]]
+    want = scan_standard(profiles, reads, device="cpu")
+    if [(int(r[1]), r[2]) for r in rows] != [
+        (q + 1, profiles[b].accession) for q, b, *_ in want
+    ] or not rows:
+        raise SystemExit(f"standard scan rows differ from the CPU plain "
+                         f"path: {len(rows)} vs {len(want)}")
+    worst = 0.0
+    for r, (_, _, alt, null, _) in zip(rows, want):
+        d = max(abs(float(r[4]) - alt), abs(float(r[5]) - null))
+        if not d <= 1e-5 or "standard" not in r:
+            raise SystemExit(f"standard scan row {r} vs {alt}, {null}")
+        worst = max(worst, d)
+    print(f"standard scan: {len(rows)} rows of {STD_READS} reads x "
+          f"{STD_PROFILES} profiles equal the CPU plain path, logliks max|d| "
+          f"{worst:.3g}")
+
+    # a reference .dcp laid out as tests/test_dcp.py builds one
+    prof = {"accession": "PF00001.1", "null": b"\x01" * 40,
+            "alt": b"\x02" * 90, "core_size": 3, "consensus": "AAA",
+            **{k: i + 1 for i, k in enumerate(dcp._SPECIALS)},
+            "null_ndist": [b"\x03" * 8], "alt_insert_ndist": [b"\x03" * 8],
+            "alt_match_ndist": [[b"\x03" * 8]] * 3}
+    ref = os.path.join(workdir, "ref.dcp")
+    with open(ref, "wb") as fp:
+        fp.write(msgpack.packb({"header": {
+            "magic_number": dcp.DCP_MAGIC, "profile_typeid": 2,
+            "float_size": 4, "entry_dist": 2, "epsilon": 0.01,
+            "abc": b"\x07" * 24, "amino": b"\x08" * 44,
+            "profile_sizes": [511]}, "profiles": [prof]}, use_bin_type=True))
+    out = cli("info", ref)
+    if "reference .dcp" not in out or "dp decode:" not in out:
+        raise SystemExit(f"info on a .dcp:\n{out}")
+    hmm = os.path.join(workdir, "parity.hmm")
+    with open(hmm, "w") as fp:
+        write_h3(fp, [random_h3(7, 40, peak=0.9)])
+    out = cli("parity", hmm, "-o", os.path.join(workdir, "parity.tsv"))
+    if "PARITY OK" not in out:
+        raise SystemExit(f"parity:\n{out}")
+
+
+def phase_trace(ctx, dev, workdir: str) -> tuple[int, str]:
+    """(viterbi_max launches, summary line) of one warm Viterbi scan of
+    TRACE_READS of phase 3's ACGT reads under DCP_PROFILE_DIR: one
+    planted read and the first non-planted ones, so pass 2 traces one
+    survivor.  The Chrome trace must name the Viterbi kernel; prints the
+    kernel time by name and the device's idle share of the window from
+    the first to the last device event."""
+    import glob
+
+    import torch
+
+    from deciphon_tpu_torch.ops import viterbi_cuda as vc
+    from deciphon_tpu_torch.ops.scan_engine import ScanEngine
+
+    db, seqs, planted = ctx["db"], ctx["seqs"], ctx["planted"]
+    acgt = seqs[:NREADS]
+    hit = min((s for s in planted if s <= NREADS),
+              key=lambda s: len(seqs[s - 1].data))
+    chosen = [seqs[hit - 1]] + [s for s in acgt if s.seq_id not in planted][
+        :TRACE_READS - 1]
+    engine = ScanEngine(db, device=dev)
+    engine.prepare()
+    engine.scan(chosen)  # warm
+    torch.cuda.synchronize()
+    outdir = os.path.join(workdir, "profile")
+    os.environ["DCP_PROFILE_DIR"] = outdir
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        hits = engine.scan(chosen)
+        traced_s = time.perf_counter() - t0
+        launches = vc.LAUNCHES["max"]
+    finally:
+        os.environ.pop("DCP_PROFILE_DIR")
+    if (hit, planted[hit]) not in {(h.seq_id, h.profile_idx) for h in hits}:
+        raise SystemExit("traced scan: the planted read missed")
+    files = glob.glob(os.path.join(outdir, "scan", "*.json"))
+    if len(files) != 1:
+        raise SystemExit(f"traced scan: want one trace file, got {files}")
+    with open(files[0]) as fp:
+        events = json.load(fp)["traceEvents"]
+    dev_events = [e for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                  and "dur" in e]
+    by_name: dict[str, list[float]] = {}
+    for e in dev_events:
+        if e["cat"] == "kernel":
+            by_name.setdefault(e["name"], []).append(float(e["dur"]))
+    if not any("viterbi_kernel" in n for n in by_name):
+        raise SystemExit("traced scan: no viterbi_kernel device event in "
+                         f"{files[0]} ({len(dev_events)} device events: is "
+                         "CUPTI missing?)")
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in dev_events)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    window = end - spans[0][0]
+    idle = 1.0 - busy / window
+    print(f"traced scan: {len(chosen)} reads, {len(hits)} hits, "
+          f"{launches} viterbi_max launches, {traced_s:.3f} s under the "
+          f"profiler (host clock); trace {os.path.getsize(files[0])} B, "
+          f"{len(events)} events, {len(dev_events)} on the device")
+    kernel_total = sum(map(sum, by_name.values()))
+    for name, durs in sorted(by_name.items(), key=lambda kv: -sum(kv[1])):
+        print(f"  kernel time {sum(durs) / 1e3:.3f} ms x {len(durs)} "
+              f"({100 * sum(durs) / kernel_total:.1f}%): {name[:100]}")
+    vit = sum(sum(d) for n, d in by_name.items() if "viterbi_kernel" in n)
+    summary = (f"trace: device window {window / 1e3:.3f} ms, busy "
+               f"{busy / 1e3:.3f} ms, idle share {100 * idle:.1f}%; kernels "
+               f"{kernel_total / 1e3:.3f} ms in {len(by_name)} names, "
+               f"viterbi_kernel {vit / 1e3:.3f} ms")
+    print(summary)
+    del engine
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
 def main(argv: list[str]) -> int:
+    if argv[:1] == ["--dist-worker"] and len(argv) == 3:
+        return dist_worker(*argv[1:])  # one rank of phase 6
     import torch
 
     menu_only = argv == ["--menu-only"]
@@ -883,6 +1180,14 @@ def main(argv: list[str]) -> int:
         print(f"sharded done at {time.perf_counter() - t_start:.1f} s")
         daemon = phase_daemon(ctx, workdir)
         print(f"daemon done at {time.perf_counter() - t_start:.1f} s")
+        t6 = time.perf_counter()
+        distributed = phase_distributed(ctx, workdir, dev)
+        print(f"distributed done at {time.perf_counter() - t_start:.1f} s")
+        phase_standard_dcp_parity(dev, workdir)
+        traced, trace_summary = phase_trace(ctx, dev, workdir)
+        print(f"host entry points and trace done at "
+              f"{time.perf_counter() - t_start:.1f} s (phases 6-7: "
+              f"{time.perf_counter() - t6:.1f} s)")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     bad = sorted(m for m in sys.modules
@@ -892,14 +1197,18 @@ def main(argv: list[str]) -> int:
     kernels = []
     for semiring, rec in main_path.items():
         rec["max_abs_err"] = max(rec["max_abs_err"], menu_err[semiring])
-        per_path = dict(zip(PATHS, (rec["launches"], sharded[semiring],
-                                    daemon[semiring])))
+        viterbi = semiring == "max"
+        per_path = dict(zip(PATHS, (
+            rec["launches"], sharded[semiring], daemon[semiring],
+            distributed if viterbi else 0, traced if viterbi else 0,
+        )))
         kernels.append({
             "name": KERNEL_NAME[semiring], "route": "cuda",
             "source": KERNEL_SOURCE[semiring], "replaces": KERNEL_REPLACES,
             **rec,
             "paths": {k: n for k, n in per_path.items() if n},
         })
+    print(trace_summary)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

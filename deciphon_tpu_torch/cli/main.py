@@ -1,4 +1,4 @@
-"""dcp-torch command line: serve / press / scan / info.
+"""dcp-torch command line: serve / press / scan / info / parity.
 
 The counterpart of deciphon_tpu/cli/main.py.  ``serve`` is the
 scheduler-polling worker daemon (server/daemon.py) on ``--device``
@@ -7,12 +7,15 @@ host commands; ``scan`` runs the port's engine on ``--device`` (default
 cuda), with Viterbi or, under ``--forward``, forward scoring, on ACGT
 reads and on reads holding IUPAC ambiguity codes, one row per hit or,
 under ``--best-hit``, per read, over the whole DB or, under
-``--shard i/N``, one size-balanced partition of it.  ``parity``,
-reference ``.dcp`` files and standard (typeid-1) databases are later
-slices of the port (ROADMAP.md).
+``--shard i/N``, one size-balanced partition of it; a standard (typeid-1)
+DB scans through ops/viterbi_standard.py on ``--device``.  ``info``
+describes a .dtp, a standard DB or a reference ``.dcp``; ``parity`` runs
+the reference's anchors on a .hmm with the f64 oracle, on the host.
 
     python -m deciphon_tpu_torch.cli.main press db.hmm -o db.dtp
     python -m deciphon_tpu_torch.cli.main scan db.dtp reads.fa -o prods.tsv
+    python -m deciphon_tpu_torch.cli.main info ref.dcp
+    python -m deciphon_tpu_torch.cli.main parity PF02545.hmm [ref.dcp]
     python -m deciphon_tpu_torch.cli.main serve --env .env
 """
 
@@ -23,11 +26,6 @@ import sys
 
 from deciphon_tpu_torch.utils import logging as log
 from deciphon_tpu_torch.utils.rc import RC, DcpError
-
-NO_STANDARD = (
-    "standard (typeid-1) databases are not ported to "
-    "deciphon_tpu_torch yet (ROADMAP.md, queue 1)"
-)
 
 
 def cmd_serve(args) -> int:
@@ -84,8 +82,10 @@ def cmd_scan(args) -> int:
     from deciphon_tpu_torch.server.prod import ProdWriter
     from deciphon_tpu_torch.utils.fasta import read_fasta
 
+    # typeid dispatch (the reference's profile vtable at db-open time,
+    # src/db/profile_reader.c:95-98 / src/model/profile.h:11-18)
     if db_typeid(args.db) == STANDARD:
-        raise NotImplementedError(NO_STANDARD)
+        return _scan_standard(args)
     db = TensorDB.load(args.db)
     subset = None
     nprofiles = db.nprofiles
@@ -148,17 +148,185 @@ def cmd_scan(args) -> int:
     return 0
 
 
+def _scan_standard(args) -> int:
+    """Scan against a standard (typeid-1, generic dense HMM) database on
+    ``--device``.  Rows carry typeid 'standard' and an empty match
+    column (generic profiles have no codon decode)."""
+    from deciphon_tpu_torch.db.standard_db import load_standard_db
+    from deciphon_tpu_torch.ops.scan_engine import resolve_device
+    from deciphon_tpu_torch.ops.viterbi_standard import scan_standard
+    from deciphon_tpu_torch.server.prod import ProdWriter
+    from deciphon_tpu_torch.utils.fasta import read_fasta
+
+    device = resolve_device(args.device)
+    profiles = load_standard_db(args.db)
+    writer = ProdWriter(
+        scan_id=0,
+        abc_name=profiles[0].abc.name if profiles else "dna",
+        profile_typeid="standard",
+    )
+    nhits = nseqs = 0
+    batch: list[tuple[int, str]] = []
+
+    def flush(batch):
+        nonlocal nhits
+        hits = scan_standard(
+            profiles, [d for _, d in batch],
+            lrt_threshold=args.lrt_threshold, device=device,
+        )
+        for q, b, alt, null, _lrt in hits:
+            writer.add(batch[q][0], profiles[b].accession, alt, null, "")
+            nhits += 1
+
+    for _, data in read_fasta(args.fasta):
+        nseqs += 1
+        batch.append((nseqs, data))
+        if len(batch) >= args.batch_size:
+            flush(batch)
+            batch = []
+    if batch:
+        flush(batch)
+    out = args.output or "prods.tsv"
+    writer.write(out)
+    print(f"{nhits} hits from {nseqs} seqs x {len(profiles)} profiles "
+          f"on {device} -> {out}")
+    return 0
+
+
+# Reference anchors for the PF02545 parity run (BASELINE.md):
+#   alt Viterbi loglik of the 1023-nt consensus read, profile 1
+#   (reference test/protein_h3reader.c:57) and the .hmm asset's XXH3-64
+#   content hash (reference test/sched.c:92).
+PF02545_GOLDEN_ALT = -1430.9281381240353
+PF02545_HMM_XXH3 = -7843725841264658444
+
+
+def cmd_parity(args) -> int:
+    """One-command reference parity runner, on the host (f64 oracle).
+
+    Hash-checks the .hmm asset, presses it, rebuilds the consensus read,
+    asserts the golden alt log-likelihood, optionally diffs structural
+    press metadata against a reference-pressed .dcp, and emits the
+    product TSV row for byte-diffing.  The .dcp's imm DP bins stay
+    opaque (undocumented imm packing); every surrounding byte is
+    checked."""
+    import numpy as np
+
+    from deciphon_tpu_torch.models import codec
+    from deciphon_tpu_torch.models.alphabet import DNA, STANDARD_CODE
+    from deciphon_tpu_torch.models.h3reader import press_file
+    from deciphon_tpu_torch.ops import viterbi_ref as vr
+    from deciphon_tpu_torch.server.prod import ProdWriter
+    from deciphon_tpu_torch.utils import xfile
+
+    failures = 0
+
+    def check(name: str, ok: bool, detail: str = "") -> None:
+        nonlocal failures
+        print(f"[{'ok' if ok else 'FAIL'}] {name}"
+              + (f": {detail}" if detail else ""))
+        if not ok:
+            failures += 1
+
+    h = xfile.xxh3_64(args.hmm)
+    known_asset = h == PF02545_HMM_XXH3
+    check(
+        "hmm xxh3",
+        known_asset or not args.strict,
+        f"{h}" + ("" if known_asset else
+                  " (not the PF02545 test asset; golden checks skipped)"),
+    )
+    profs = list(press_file(args.hmm))
+    check("press", len(profs) >= 1, f"{len(profs)} profiles")
+    prof = profs[0]
+    read = "".join(
+        STANDARD_CODE.codon_str(b // 16, (b // 4) % 4, b % 4)
+        for b in np.argmax(prof.match_codonp, axis=1)
+    )
+    if known_asset:
+        check("core_size", prof.core_size == 341, str(prof.core_size))
+        check("consensus read length", len(read) == 1023, str(len(read)))
+    res = vr.viterbi_alt(prof, DNA.encode(read))
+    nul = vr.viterbi_null(prof, DNA.encode(read))
+    print(f"     alt loglik {res.loglik:.13f}  null {nul.loglik:.13f}")
+    if known_asset:
+        diff = abs(res.loglik - PF02545_GOLDEN_ALT)
+        check(
+            "golden alt loglik (protein_h3reader.c:57)",
+            diff <= args.tolerance,
+            f"got {res.loglik:.13f}, want {PF02545_GOLDEN_ALT} "
+            f"(|diff| {diff:.2e} <= {args.tolerance})",
+        )
+    if args.dcp:
+        from deciphon_tpu_torch.db.dcp import read_dcp
+
+        info = read_dcp(args.dcp)
+        check("dcp profile count", info.nprofiles == len(profs),
+              f"{info.nprofiles} vs {len(profs)}")
+        for meta, p in zip(info.profiles, profs):
+            if meta.accession != p.accession or meta.core_size != p.core_size:
+                check(
+                    "dcp profile metadata",
+                    False,
+                    f"{meta.accession}/{meta.core_size} vs "
+                    f"{p.accession}/{p.core_size}",
+                )
+                break
+        else:
+            check("dcp profile metadata", True,
+                  "accessions + core sizes match")
+    # the product TSV row (prod.c:13-53 format) for byte-diffing
+    w = ProdWriter(scan_id=0)
+    match = codec.render_match(codec.match_steps(prof, read, res.path))
+    w.add(1, prof.accession, res.loglik, nul.loglik, match)
+    out = args.output or "parity_prods.tsv"
+    w.write(out)
+    print(f"     product row -> {out}")
+    print("PARITY " + ("OK" if failures == 0 else f"FAILED ({failures})"))
+    return 0 if failures == 0 else 1
+
+
 def cmd_info(args) -> int:
     from deciphon_tpu_torch.db.dispatch import STANDARD, db_typeid
     from deciphon_tpu_torch.db.format import TensorDB
 
     if args.db.endswith(".dcp"):
-        raise NotImplementedError(
-            "reference .dcp files are not ported to deciphon_tpu_torch "
-            "yet (ROADMAP.md, queue 1)"
-        )
+        from deciphon_tpu_torch.db.dcp import read_dcp
+        from deciphon_tpu_torch.db.dcp_dp import DcpDpError
+
+        info = read_dcp(args.db)
+        print(f"format:     reference .dcp (magic 0x{info.magic:X})")
+        print(f"profiles:   {info.nprofiles}")
+        print(f"type:       {info.typeid_name}")
+        print(f"float_size: {info.float_size}")
+        print(f"entry_dist: {info.entry_dist_name}")
+        print(f"epsilon:    {info.epsilon}")
+        if info.profiles:
+            ks = [p.core_size for p in info.profiles]
+            print(f"nodes:      {sum(ks)} (min {min(ks)}, max {max(ks)})")
+        if info.profile_sizes:
+            print(f"bytes/prof: min {min(info.profile_sizes)}, "
+                  f"max {max(info.profile_sizes)}")
+        if info.profiles:
+            # invariant-driven imm_dp extraction (db/dcp_dp.py); on
+            # failure the error is the analysis of which bytes block it
+            try:
+                _, alt = info.profiles[0].decode_dp()
+                print(f"dp decode:  ok ({alt.report})")
+            except DcpDpError as e:
+                print(f"dp decode:  FAILED — {e}")
+        return 0
     if db_typeid(args.db) == STANDARD:
-        raise NotImplementedError(NO_STANDARD)
+        from deciphon_tpu_torch.db.standard_db import load_standard_db
+
+        profs = load_standard_db(args.db)
+        print(f"profiles:   {len(profs)}")
+        print("type:       standard")
+        if profs:
+            print(f"abc:        {profs[0].abc.name}")
+            ns = [p.nstates for p in profs]
+            print(f"states:     {sum(ns)} (min {min(ns)}, max {max(ns)})")
+        return 0
     db = TensorDB.load(args.db)
     h = db.header
     print(f"profiles:   {db.nprofiles}")
@@ -194,7 +362,8 @@ def main(argv=None) -> int:
     p.add_argument("--uniform-entry", action="store_true")
     p.set_defaults(fn=cmd_press)
 
-    p = sub.add_parser("scan", help="scan FASTA reads against a .dtp db")
+    p = sub.add_parser("scan", help="scan FASTA reads against a .dtp or "
+                       "standard db")
     p.add_argument("db")
     p.add_argument("fasta")
     p.add_argument("-o", "--output", default="")
@@ -227,9 +396,25 @@ def main(argv=None) -> int:
     )
     p.set_defaults(fn=cmd_scan)
 
-    p = sub.add_parser("info", help="describe a .dtp database")
+    p = sub.add_parser("info", help="describe a .dtp, standard or .dcp db")
     p.add_argument("db")
     p.set_defaults(fn=cmd_info)
+
+    p = sub.add_parser(
+        "parity",
+        help="run the reference parity suite on a .hmm asset "
+             "(golden loglik, press metadata vs .dcp, TSV emit)",
+    )
+    p.add_argument("hmm", help="e.g. PF02545.hmm (the reference test asset)")
+    p.add_argument("dcp", nargs="?", default="",
+                   help="optional reference-pressed .dcp to diff against")
+    p.add_argument("-o", "--output", default="")
+    p.add_argument("--tolerance", type=float, default=1e-3,
+                   help="|diff| bound on the golden loglik (f64 oracle "
+                        "vs imm accumulation order)")
+    p.add_argument("--strict", action="store_true",
+                   help="fail if the .hmm hash is not the known asset")
+    p.set_defaults(fn=cmd_parity)
 
     args = ap.parse_args(argv)
     # error boundary as in the reference CLI: user-level failures become
@@ -242,7 +427,7 @@ def main(argv=None) -> int:
     except (FileNotFoundError, IsADirectoryError, PermissionError) as e:
         log.error(f"{RC.EIO}: {e}")
         return int(RC.EIO)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         log.error(f"{RC.EINVAL}: {e}")
         return int(RC.EINVAL)
     except KeyboardInterrupt:

@@ -52,14 +52,13 @@ def db_typeid(path: str) -> str:
 
 
 def open_db(path: str):
-    """('protein', TensorDB); a standard DB raises NotImplementedError
-    (standard profiles are not ported yet)."""
+    """(typeid, container): ('protein', TensorDB) or
+    ('standard', list[StandardProfile])."""
     tid = db_typeid(path)
     if tid == PROTEIN:
         from deciphon_tpu_torch.db.format import TensorDB
 
         return PROTEIN, TensorDB.load(path)
-    raise NotImplementedError(
-        "standard (typeid-1) databases are not ported to "
-        "deciphon_tpu_torch yet (ROADMAP.md, queue 1)"
-    )
+    from deciphon_tpu_torch.db.standard_db import load_standard_db
+
+    return STANDARD, load_standard_db(path)

@@ -46,6 +46,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from deciphon_tpu_torch.db.format import TensorDB
 from deciphon_tpu_torch.db.partition import pack_profile_rows
@@ -274,34 +275,44 @@ class ScanEngine:
 
     def scan(self, seqs: Sequence[SeqRecord]) -> list[Hit]:
         """Score all (read, profile) pairs; return the LRT-passing hits
-        with traceback and match strings, ordered (read, profile)."""
+        with traceback and match strings, ordered (read, profile).  With
+        DCP_PROFILE_DIR set the scan runs under a torch.profiler trace
+        (utils/trace.device_trace), its phases named as in
+        ``last_timings``."""
+        with trace.device_trace("scan", self.device):
+            return self._scan(seqs)
+
+    def _scan(self, seqs: Sequence[SeqRecord]) -> list[Hit]:
         encoded, classes = self.encode(seqs)
         if not seqs:
             return []
         counters = trace.ScanCounters()
         t0 = time.perf_counter()
-        pieces = self._pull(self._queue(encoded, classes, counters))
-        S, P = len(encoded), self.db.nprofiles
-        alt = np.full((S, P), NEG, np.float32)
-        null = np.full((S, P), NEG, np.float32)
-        for rows, cols, out in pieces:
-            alt[np.ix_(rows, cols)] = out[0]
-            null[np.ix_(rows, cols)] = out[1]
+        with record_function("pass1"):
+            pieces = self._pull(self._queue(encoded, classes, counters))
+            S, P = len(encoded), self.db.nprofiles
+            alt = np.full((S, P), NEG, np.float32)
+            null = np.full((S, P), NEG, np.float32)
+            for rows, cols, out in pieces:
+                alt[np.ix_(rows, cols)] = out[0]
+                null[np.ix_(rows, cols)] = out[1]
         t1 = time.perf_counter()
         self.last_scores = (alt, null)
         p = self.params
-        lrt = xmath.lrt(null.astype(np.float64), alt.astype(np.float64))
-        ok = np.isfinite(lrt) & (lrt >= p.lrt_threshold)
-        ok &= alt > NEG / 2
-        self._consume(pieces)
-        codes_of = {si: c for c, ids in classes.items() for si in ids}
-        survivors = [
-            (int(si), int(gi), codes_of[int(si)], float(alt[si, gi]),
-             float(null[si, gi]), float(lrt[si, gi]))
-            for si, gi in np.argwhere(ok)
-        ]
+        with record_function("gate"):
+            lrt = xmath.lrt(null.astype(np.float64), alt.astype(np.float64))
+            ok = np.isfinite(lrt) & (lrt >= p.lrt_threshold)
+            ok &= alt > NEG / 2
+            self._consume(pieces)
+            codes_of = {si: c for c, ids in classes.items() for si in ids}
+            survivors = [
+                (int(si), int(gi), codes_of[int(si)], float(alt[si, gi]),
+                 float(null[si, gi]), float(lrt[si, gi]))
+                for si, gi in np.argwhere(ok)
+            ]
         t2 = time.perf_counter()
-        hits = self._traceback(seqs, encoded, survivors)
+        with record_function("pass2"):
+            hits = self._traceback(seqs, encoded, survivors)
         self.last_timings = dict(
             pass1=t1 - t0, gate=t2 - t1, pass2=time.perf_counter() - t2,
             survivors=len(survivors),
@@ -315,14 +326,19 @@ class ScanEngine:
         launch; ties keep the first maximum in block order (the JAX
         engine's ``jnp.argmax`` within a block, a strictly larger LRT
         across blocks).  Reads whose every LRT is -inf are left out.  No
-        traceback: use ``scan`` for products."""
+        traceback: use ``scan`` for products.  Traced as ``scan`` is."""
+        with trace.device_trace("best_hits", self.device):
+            return self._best_hits(seqs)
+
+    def _best_hits(self, seqs: Sequence[SeqRecord]) -> list[BestHit]:
         encoded, classes = self.encode(seqs)
         if not seqs:
             return []
         counters = trace.ScanCounters()
-        pieces = self._pull(
-            self._queue(encoded, classes, counters, reduce=True)
-        )
+        with record_function("pass1"):
+            pieces = self._pull(
+                self._queue(encoded, classes, counters, reduce=True)
+            )
         self._consume(pieces)
         counters.report("best_hits")
         return [

@@ -5,12 +5,14 @@ The counterpart of deciphon_tpu/parallel/pallas_scan.py
 per-read best-hit merge of deciphon_tpu/parallel/sharded_scan.py:22-42.
 
 An engine block's profiles split over the mesh's 'profiles' axis into
-contiguous shards (``np.array_split``: shards need not be equal, so no
-NEG padding), and each class's reads split over 'seqs'.  Tile (s, p)
-holds shard p's tables on device (s, p) and scores read shard s there
-with the same kernel launch as an unsharded block, on that device's
-current stream.  The kernel computes every (read, profile) cell in its
-own CTA, so a tile's cells carry the bits of the unsharded block's.
+contiguous shards of ceil(B / shards) profiles, the shards of the JAX
+package's padded axis (pallas_scan._pad_axis0) without its NEG rows: a
+tile holds only real profiles, so the last shard may be shorter or
+empty.  Each class's reads split over 'seqs'.  Tile (s, p) holds shard
+p's tables on device (s, p) and scores read shard s there with the same
+kernel launch as an unsharded block, on that device's current stream.
+The kernel computes every (read, profile) cell in its own CTA, so a
+tile's cells carry the bits of the unsharded block's.
 There is no collective: the engine queues every tile's launch on every
 device, syncs once per device, and assembles [S, P] on the host.
 
@@ -43,27 +45,40 @@ class Tile(NamedTuple):
     blk: vc.CudaBlock
 
 
-def shard_tiles(profiles, kpad: int, mesh: ScanMesh,
-                codes: tuple = ()) -> list[Tile]:
-    """One Tile per (read shard, non-empty profile shard): the shard's
-    tables are built once per profile shard and copied to every other
-    tile of its mesh column, so no two tiles share a tensor even where
-    the mesh repeats a device."""
+def profile_shards(n: int, nshards: int) -> list[np.ndarray]:
+    """Positions 0..n-1 in ``nshards`` contiguous shards of ceil(n /
+    nshards), as _pad_axis0 pads the profile axis (the last ones may be
+    shorter or empty)."""
+    size = -(-n // nshards)
+    return [np.arange(p * size, min(n, (p + 1) * size))
+            for p in range(nshards)]
+
+
+def shard_tiles(profiles, kpad: int, mesh: ScanMesh, codes: tuple = (),
+                local=None) -> list[Tile]:
+    """One Tile per (read shard, non-empty profile shard), or per mesh
+    slot in ``local`` (indices into ``mesh.devices``: a process of a
+    multi-process mesh builds only its own).  A shard's tables are built
+    once per profile shard and copied to every other tile of its mesh
+    column, so no two tiles share a tensor even where the mesh repeats a
+    device."""
     tiles = []
-    for p, cols in enumerate(np.array_split(np.arange(len(profiles)),
-                                            mesh.profiles)):
+    for p, cols in enumerate(profile_shards(len(profiles), mesh.profiles)):
         if not len(cols):
             continue
-        first = vc.CudaBlock.from_profiles(
-            [profiles[i] for i in cols], kpad=kpad,
-            device=mesh.device(0, p), codes=codes,
-        )
-        tiles.append(Tile(0, p, cols, first))
-        for s in range(1, mesh.seqs):
+        first = None
+        for s in range(mesh.seqs):
+            if local is not None and s * mesh.profiles + p not in local:
+                continue
             dev = mesh.device(s, p)
-            tiles.append(Tile(s, p, cols, vc.CudaBlock(
-                *(t.to(dev, copy=True) for t in first)
-            )))
+            if first is None:
+                first = blk = vc.CudaBlock.from_profiles(
+                    [profiles[i] for i in cols], kpad=kpad, device=dev,
+                    codes=codes,
+                )
+            else:
+                blk = vc.CudaBlock(*(t.to(dev, copy=True) for t in first))
+            tiles.append(Tile(s, p, cols, blk))
     return tiles
 
 

@@ -6,6 +6,9 @@ CMakeLists.txt:34-41). The rebuild's equivalents are environment-gated:
 
   DCP_DEBUG_HTTP=1      — log every scheduler request/response line
                           (method, path, status, byte sizes)
+  DCP_PROFILE_DIR=path  — wrap a scan in a torch.profiler trace, written
+                          as one Chrome trace (chrome://tracing or
+                          Perfetto) under <path>/<label>/
 
 plus per-scan throughput counters (cell-updates/s) the engine logs at
 info level — the device-side analogue of the reference's progress meter.
@@ -13,6 +16,7 @@ info level — the device-side analogue of the reference's progress meter.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -36,6 +40,34 @@ def log_http(method: str, path: str, status: int, nreq: int, nresp: int):
     log.debug(
         f"http {method} {path} -> {status} ({nreq}B out, {nresp}B in)"
     )
+
+
+@contextlib.contextmanager
+def device_trace(label: str = "scan", device=None):
+    """torch.profiler trace around a device workload, if DCP_PROFILE_DIR
+    is set: CPU activity, and CUDA activity (CUPTI) when ``device`` is a
+    GPU.  One Chrome trace per call lands in <DCP_PROFILE_DIR>/<label>/.
+    The kernels launch through ctypes, not as torch ops, so they appear
+    only as device events under their mangled names (``viterbi_kernel<…>``,
+    ``forward_kernel<…>``); the engine's ``record_function`` ranges
+    (pass1, gate, pass2) mark the phases."""
+    outdir = os.environ.get("DCP_PROFILE_DIR")
+    if not outdir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    where = os.path.join(outdir, label)
+    os.makedirs(where, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(where, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    log.info(f"{label}: profiler trace -> {path}")
 
 
 class ScanCounters:

@@ -88,6 +88,27 @@ with step("scan --best-hit"):
 with step("scan --shard 2/2"):
     assert main(["scan", f"{tmp}/s.dtp", f"{tmp}/r.fa", "-o",
                  f"{tmp}/h.tsv", "--device", "cpu", "--shard", "2/2"]) == 0
+with step("standard scan"):
+    from deciphon_tpu_torch.db.standard_db import write_standard_db
+    from deciphon_tpu_torch.models.standard import sample_standard
+    write_standard_db(f"{tmp}/std.dtp",
+                      [sample_standard(s + 1, 3) for s in range(2)])
+    assert main(["scan", f"{tmp}/std.dtp", f"{tmp}/r.fa", "-o",
+                 f"{tmp}/std.tsv", "--device", "cpu"]) == 0, "rc"
+with step("info on a .dcp"):
+    import msgpack
+    from deciphon_tpu_torch.db import dcp
+    prof = {"accession": "PF00001.1", "null": b"\x01" * 40,
+            "alt": b"\x02" * 90, "core_size": 3, "consensus": "AAA",
+            **{k: i + 1 for i, k in enumerate(dcp._SPECIALS)}}
+    with open(f"{tmp}/ref.dcp", "wb") as fp:
+        fp.write(msgpack.packb({"header": {
+            "magic_number": dcp.DCP_MAGIC, "profile_typeid": 2,
+            "float_size": 4, "entry_dist": 2, "epsilon": 0.01,
+            "profile_sizes": [100]}, "profiles": [prof]}))
+    assert main(["info", f"{tmp}/ref.dcp"]) == 0, "rc"
+with step("parity"):
+    assert main(["parity", f"{tmp}/s.hmm", "-o", f"{tmp}/par.tsv"]) == 0
 with step("start the fake scheduler"):
     fake = FakeScheduler(spool_dir=f"{tmp}/spool")
     url = fake.serve()
@@ -141,8 +162,9 @@ def test_port_sources_import_no_jax_package():
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Press, scan (Viterbi, forward with N, --best-hit, --shard) and two
-    serve --single-run jobs in a fresh interpreter, with no module of
+    """Press, scan (Viterbi, forward with N, --best-hit, --shard), a
+    standard scan, info on a .dcp, parity and two serve --single-run
+    jobs in a fresh interpreter, with no module of
     jax or deciphon_tpu loaded at any step.  The environment is fixed
     (nothing of the caller's: no PYTHONPATH entries that could preload
     jax, no scheduler or daemon settings), with its own home, temp and

@@ -117,3 +117,61 @@ def test_paths_with_codes_match_jax_batch(codes):
             codec.render_match(codec.match_steps(prof, seq, r.path))
         )
         assert g.path == vr.viterbi_alt(prof, enc, codes=codes).path
+
+
+@pytest.fixture
+def tiny_engine(tmp_path):
+    """A CPU engine over a 3-profile .dtp and two reads, one planted."""
+    from deciphon_tpu_torch.db.format import TensorDB, write_db
+    from deciphon_tpu_torch.models.alphabet import STANDARD_CODE
+    from deciphon_tpu_torch.models.h3reader import build_profile
+    from deciphon_tpu_torch.models.h3writer import random_h3
+    from deciphon_tpu_torch.ops.scan_engine import ScanEngine, SeqRecord
+
+    path = str(tmp_path / "t.dtp")
+    write_db(path, [build_profile(random_h3(s + 1, k, peak=0.9))
+                    for s, k in enumerate((4, 7, 5))])
+    db = TensorDB.load(path)
+    planted = "".join(
+        STANDARD_CODE.codon_str(b // 16, (b // 4) % 4, b % 4)
+        for b in map(int, np.argmax(db.profile(1).match_codonp, 1)))
+    seqs = [SeqRecord(1, "r1", planted), SeqRecord(2, "r2", "ACGTTGCAACG")]
+    return ScanEngine(db, device="cpu"), seqs
+
+
+def test_device_trace_off_without_the_variable(tiny_engine, tmp_path,
+                                               monkeypatch):
+    """Without DCP_PROFILE_DIR a scan writes nothing and runs no
+    profiler."""
+    from deciphon_tpu_torch.utils import trace
+
+    monkeypatch.delenv("DCP_PROFILE_DIR", raising=False)
+    monkeypatch.chdir(tmp_path)
+    engine, seqs = tiny_engine
+    before = set(tmp_path.rglob("*"))
+    with trace.device_trace("scan", "cpu"):
+        assert torch.autograd.profiler._is_profiler_enabled is False
+    engine.scan(seqs)
+    assert set(tmp_path.rglob("*")) == before
+
+
+@pytest.mark.parametrize("label", ["scan", "best_hits"])
+def test_device_trace_writes_one_chrome_trace(tiny_engine, tmp_path,
+                                              monkeypatch, label):
+    """With DCP_PROFILE_DIR, scan and best_hits each write one Chrome
+    trace under <dir>/<label>/ holding the engine's torch ops and its
+    phase ranges (CPU activity only, as the engine runs on the CPU)."""
+    import json
+
+    out = tmp_path / "prof"
+    monkeypatch.setenv("DCP_PROFILE_DIR", str(out))
+    engine, seqs = tiny_engine
+    hits = getattr(engine, label)(seqs)
+    assert hits  # the planted read hits profile 2
+    (path,) = (out / label).iterdir()
+    events = json.loads(path.read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    phases = {"pass1", "gate", "pass2"} if label == "scan" else {"pass1"}
+    assert phases <= names
+    assert any(n and n.startswith("aten::") for n in names)
+    assert not any(e.get("cat") == "kernel" for e in events)
