@@ -19,7 +19,14 @@ Phases, each fatal on failure:
      nats over the null) on the forward kernel under all four flag
      pairs, held against the f32 plain version up to 1000 nt and the
      f64 one above.  Tolerance: 1e-4 + 1e-6 * |plain| (max), 1e-3 +
-     1e-5 * |plain| (logsumexp);
+     1e-5 * |plain| (logsumexp).  Then pass 2's kernel (csrc/
+     traceback.cu) against its plain version trace_dp on the card: K 8,
+     40, 129, 385, 1025 and 4096 with reads of 0-600 nt and one of 1200
+     nt, ragged cores, dead DD links and a tie-forcing profile; all four
+     flag pairs at K 40; base-5 and base-6 reads; 1 hit and 128 hits.
+     Every backpointer array must equal trace_dp's on the rows a walk
+     reads (VT within the Viterbi tolerance; it has been 0) and the walked
+     paths be identical;
   3. the main path at a Pfam-shaped size: press a synthetic 1024-profile
      .hmm, then scan one mixed read set (256 ACGT reads, 24 reads with N,
      8 with N and R) under Viterbi and under --forward, each with the
@@ -27,7 +34,12 @@ Phases, each fatal on failure:
      reads (also those holding N, and N and R) must hit their profiles,
      the semiring's kernel must have been launched once per block and
      read class, every pass-1 cell of every class must equal the plain
-     version, and no jax may be loaded.  Kernel-vs-plain times per class,
+     version, and no jax may be loaded.  Pass 2 must have launched the
+     traceback kernel once per chunk of each (width, class) group and
+     never called trace_dp; replayed chunk by chunk (host block build,
+     upload, kernel, D2H copy, walk, codec, each timed) every array
+     equals trace_dp's on the card and every hit's path and match string
+     equal the replay's.  Kernel-vs-plain times per class,
      warm scan seconds and GCUPS are timed with CUDA events, and each
      kernel's bound is computed from the same inputs: the larger of its
      bytes over 3.35 TB/s and its operations over the card's rates (see
@@ -37,15 +49,17 @@ Phases, each fatal on failure:
      every visible card, or on one card ["cuda:0"] * 4 as 2 read shards x
      2 profile shards.  Viterbi and forward scans and best hits: every
      pass-1 cell of every class must equal the unsharded engine's bit for
-     bit, the hits and best-hit winners must be identical, and the
-     kernel must have been launched tiles x blocks x classes times;
+     bit, the hits and best-hit winners must be identical, the kernel
+     must have been launched tiles x blocks x classes times, and pass 2
+     the traceback kernel once per chunk;
   5. the scheduler daemon, Server(device="cuda"), against the port's
      FakeScheduler on localhost: a press job of the same .hmm (the
      uploaded .dtp must equal the CLI's byte for byte), a scan job of the
      288 reads and a DCP_BEST_HIT=1 scan job, whose products must equal
      phase 3's in-process hits (logliks within 1e-4 + 1e-6 * |x|) and
-     best hits; every planted read must hit, and the kernel must have
-     been launched.  A failed job is fatal;
+     best hits; every planted read must hit, the kernel must have been
+     launched, and the scan job's pass 2 the traceback kernel.  A failed
+     job is fatal;
   6. the multi-process scan (parallel/distributed.py): two worker
      processes (this script with --dist-worker) join a gloo process group
      on a free localhost port (DCP_COORDINATOR, DCP_NUM_PROCS=2,
@@ -61,16 +75,18 @@ Phases, each fatal on failure:
      synthetic reference .dcp and `parity` on a synthetic .hmm (PARITY
      OK); then one warm Viterbi scan of 32 of phase 3's reads with
      DCP_PROFILE_DIR set: the Chrome trace must exist and name the
-     Viterbi kernel, and its kernel time by name and the device's idle
-     share of the traced window are printed.
+     Viterbi and traceback kernels, and its kernel time by name and the
+     device's idle share of the traced window are printed.
 The last two lines are the card line and a JSON {"ok": true, ...}; the
 line before them is the JSON kernel table, which lists per kernel the
 launches of each path (scan, sharded, daemon, distributed, traced)
-beside phase 3's.
+beside phase 3's; the traceback row's launches, times and bound are
+those of phase 3's two scans.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -157,6 +173,22 @@ MAX_OPS = 18 + 15 + 1
 # 2 adds for VE, 3 maxima for the values' scales) and 5 exponentials of
 # the gathered match entries on the MUFU pipe
 FWD_FMA, FWD_OTHER, FWD_MUFU = 15, 18, 5
+# pass 2's kernel (csrc/traceback.cu, ops/viterbi_trace.trace_kernel)
+TRACE_NAME = "traceback"
+TRACE_SOURCE = "deciphon_tpu_torch/csrc/traceback.cu"
+TRACE_REPLACES = "deciphon_tpu/ops/viterbi_trace.py:266"
+# its menu (phase 2): widths, with reads of MENU_LENS and one long read
+TRACE_MENU_K = (8, 40, 129, 385, 1025, 4096)
+TRACE_LONG_NT = 1200
+TRACE_H128_K = 129  # the cell of a full chunk: TRACE_BATCH hits
+TRACE_H1_K = 385  # the cell of one hit
+# pass 2's work per (hit, position, core node), as ops/viterbi_trace.
+# trace_dp writes it: match 20 candidates of 2 adds each and 19
+# comparisons; insert 10 of 2 adds and 9 comparisons; the D-chain's a
+# (an add, a subtraction), its prefix max, cdd + b and the NEG clamp, and
+# the dD comparison; E's two slots (M and D).  The specials are per (hit,
+# position), not per node, and are left out as in MAX_OPS.
+TRACE_OPS = (40 + 19) + (20 + 9) + 6 + 2
 # the paths of phases 3-7, in the kernel table's "paths"
 PATHS = ("scan", "sharded", "daemon", "distributed", "traced")
 NPROCS = 2  # phase 6's worker processes
@@ -339,6 +371,122 @@ def phase_kernel_menu(dev) -> dict:
     return worst
 
 
+def tie_profile(K: int):
+    """K identical nodes with flat amino emissions and flat transition
+    rows: equal candidates across lengths, origins and nodes."""
+    from deciphon_tpu_torch.models import profile as mp
+
+    flat = np.full(20, -np.log(20.0))
+    b = mp.ProteinModelBuilder(mp.ProteinCfg(), null_lprobs=flat)
+    b.setup(K)
+    for i in range(K + 1):
+        row = np.full(7, -np.log(7.0))
+        if i == 0:
+            row[mp.TRANS_DD] = mp.LOG0
+        if i == K:
+            row[mp.TRANS_MD] = row[mp.TRANS_DD] = mp.LOG0
+        live = np.isfinite(row)
+        row[live] = -np.log(live.sum())
+        b.add_trans(row)
+        if i < K:
+            b.add_node(flat, "-")
+    return b.finalize(accession=f"ties-{K}")
+
+
+def trace_cells():
+    """(label, width, hits [(profile, read)], codes, flag pairs) of the
+    pass-2 menu: per width of TRACE_MENU_K, reads of MENU_LENS (an empty
+    one among them) and one of TRACE_LONG_NT nt against ragged cores, a
+    profile with two dead DD links and a tie-forcing one; base-5 and
+    base-6 reads at K 129; one hit at K 385; TRACE_BATCH hits at K
+    129."""
+    from deciphon_tpu_torch.models.profile import sample_profile
+    from deciphon_tpu_torch.ops.viterbi_trace import TRACE_BATCH
+
+    rng = np.random.default_rng(13)
+
+    def long_read(codes):
+        r = list(rng.choice(list("ACGT"), TRACE_LONG_NT))
+        if codes:
+            r[3], r[TRACE_LONG_NT // 2] = codes[0], codes[-1]
+        return "".join(r)
+
+    def profiles(K):
+        cores = sorted({K, max(2, K - 5), max(2, K // 2), max(2, K // 3)})
+        profs = [sample_profile(300 * K + j, k) for j, k in enumerate(cores)]
+        dd = profs[-1].dd_in.copy()
+        dd[[K // 3, 2 * K // 3]] = -np.inf
+        return profs + [replace(profs[-1], dd_in=dd),
+                        tie_profile(max(2, K - 1))]
+
+    cells = []
+    for K in TRACE_MENU_K:
+        profs = profiles(K)
+        reads = menu_reads(()) + [long_read(())]
+        hits = [(profs[j % len(profs)], r) for j, r in enumerate(reads)]
+        cells.append((f"K={K}", K, hits, (), FLAGS if K == 40 else EXT_FLAGS))
+    for codes in EXT_CODES:
+        profs = profiles(129)
+        reads = menu_reads(codes) + [long_read(codes)]
+        hits = [(profs[j % len(profs)], r) for j, r in enumerate(reads)]
+        cells.append((f"K=129 {'+'.join(codes)}", 129, hits, codes,
+                      EXT_FLAGS))
+    cells.append((f"H=1 K={TRACE_H1_K} ties", TRACE_H1_K,
+                  [(tie_profile(TRACE_H1_K), long_read(())[:600])], (),
+                  EXT_FLAGS))
+    profs = profiles(TRACE_H128_K)
+    hits = [(profs[j % len(profs)],
+             "".join(rng.choice(list("ACGT"), int(rng.integers(150, 500)))))
+            for j in range(TRACE_BATCH)]
+    cells.append((f"H={TRACE_BATCH} K={TRACE_H128_K}", TRACE_H128_K, hits,
+                   (), EXT_FLAGS))
+    return cells
+
+
+def phase_trace_menu(dev) -> float:
+    """The traceback kernel against trace_dp on the card over the menu
+    of ``trace_cells``: every backpointer array equal on the rows a walk
+    reads (rows < seq_len), VT within the Viterbi tolerance, walked paths
+    identical.  Returns the worst |VT - plain VT|."""
+    import torch
+
+    from deciphon_tpu_torch.ops import viterbi_trace as vtr
+
+    worst, ncells, nwalks = 0.0, 0, 0
+    for label, K, hits, codes, flags in trace_cells():
+        profs = [p for p, _ in hits]
+        encs = [encode(r, codes) for _, r in hits]
+        for H, block, eidx, lens in vtr.chunks(profs, encs, K,
+                                               codes or None):
+            for mh, h3 in flags:
+                pk = vtr.pack_trace(block, eidx, lens, mh, h3, dev)
+                out = []
+                k_ms = timed_ms(lambda: out.append(vtr.launch_trace(pk)))
+                ys = out[0].host()
+                t0 = time.perf_counter()
+                _, pys = vtr.trace_dp(block, eidx, lens, mh, h3, dev)
+                p_s = time.perf_counter() - t0
+                what = (f"trace menu {label} multi_hits={mh} "
+                        f"hmmer3_compat={h3}")
+                d = compare_ys(ys, pys, lens, what)
+                walks = compare_paths(ys, pys, lens, H, K, what)
+                same = all(np.array_equal(ys[k], pys[k]) for k in vtr.YS)
+                print(f"{what}: H={H} (padded {len(lens)}) ntab="
+                      f"{pk.fmT.shape[1]} Lmax={pk.eidx.shape[1]} plan "
+                      f"{vtr.trace_plan(K)}: codes equal, VT max|d| "
+                      f"{d:.3g}, {walks} paths identical; all rows equal "
+                      f"(past seq_len too): {same}; kernel {k_ms:.3f} ms "
+                      f"(CUDA events) vs trace_dp {p_s:.3f} s (host clock)")
+                worst = max(worst, d)
+                ncells += 1
+                nwalks += walks
+                del pk, out
+        torch.cuda.empty_cache()
+    print(f"trace menu: all {ncells} cells equal trace_dp, {nwalks} paths "
+          f"identical, VT max|d| {worst:.3g}")
+    return worst
+
+
 def plan_str(p) -> str:
     """A Viterbi launch plan in a few characters: nodes a lane, warps per
     read x reads per CTA, ring storage."""
@@ -420,11 +568,14 @@ def sm_clock_hz() -> float:
 
 def ops_seconds(semiring: str, clock: float) -> float:
     """Least seconds per core (node, position) on the card's arithmetic:
-    for Viterbi its f32 instructions at the issue rate; for forward the
-    larger of its f32 time (FMAs at PEAK_F32 as two operations each,
-    other f32 instructions at the issue rate) and its MUFU time."""
+    for Viterbi ("max") and the traceback DP ("trace") its f32
+    instructions at the issue rate; for forward the larger of its f32
+    time (FMAs at PEAK_F32 as two operations each, other f32
+    instructions at the issue rate) and its MUFU time."""
     if semiring == "max":
         return MAX_OPS / (SMS * F32_LANES * clock)
+    if semiring == "trace":
+        return TRACE_OPS / (SMS * F32_LANES * clock)
     f32 = 2 * FWD_FMA / PEAK_F32 + FWD_OTHER / (SMS * F32_LANES * clock)
     return max(f32, FWD_MUFU / (SMS * MUFU_LANES * clock))
 
@@ -454,9 +605,76 @@ def launch_work(blk, eidx, slen, semiring: str,
 
 def reset_launches() -> None:
     from deciphon_tpu_torch.ops import viterbi_cuda as vc
+    from deciphon_tpu_torch.ops import viterbi_trace as vtr
 
     for k in vc.LAUNCHES:
         vc.LAUNCHES[k] = 0
+    vtr.LAUNCHES[TRACE_NAME] = 0
+
+
+def trace_launches() -> int:
+    from deciphon_tpu_torch.ops import viterbi_trace as vtr
+
+    return vtr.LAUNCHES[TRACE_NAME]
+
+
+def trace_work(H, block, eidx, lens) -> tuple[int, int]:
+    """(bytes, (node, position) cells) of one traceback launch, over its
+    H real hits (not the copies that pad the hit axis): the fragment
+    rows each read's positions gather, the planes, eidx and specials
+    once, and the codes written (3 B per core node-position, 28 B per
+    hit-position); cells are core nodes x read length."""
+    core = np.asarray(block.core_size)
+    nbytes = cells = 0
+    for h in range(H):
+        L, k = int(lens[h]), int(core[h])
+        rows = len(np.unique(eidx[h, :L]))
+        nbytes += 4 * (rows * (k + 2) + 9 * k + 5 * L + 2) + L * (3 * k + 28)
+        cells += L * k
+    return nbytes, cells
+
+
+def compare_ys(ys, pys, lens, what: str) -> float:
+    """max |VT - plain VT| over rows < seq_len; every code array must
+    equal the plain version's there, and VT within the Viterbi
+    tolerance."""
+    from deciphon_tpu_torch.ops import viterbi_trace as vtr
+
+    worst = 0.0
+    for k in vtr.YS:
+        for h, L in enumerate(lens):
+            got, want = ys[k][:L, h], pys[k][:L, h]
+            if k == "VT":
+                if not L:
+                    continue
+                d = np.abs(got.astype(np.float64) - want)
+                if (d > TOL["max"][0] + TOL["max"][1] * np.abs(want)).any():
+                    raise SystemExit(f"{what}: VT of hit {h} off plain, "
+                                     f"max|d| {d.max()}")
+                worst = max(worst, float(d.max()))
+            elif not np.array_equal(got, want):
+                bad = np.argwhere(got != want)[0]
+                raise SystemExit(f"{what}: {k} of hit {h} differs from "
+                                 f"trace_dp at row {bad[0]}")
+    return worst
+
+
+def compare_paths(ys, pys, lens, H: int, K: int, what: str) -> int:
+    """Walk both versions' codes for the H real hits of non-empty
+    reads; the paths must be identical.  Returns the walks compared."""
+    from deciphon_tpu_torch.ops import viterbi_trace as vtr
+
+    n = 0
+    for h in range(H):
+        L = int(lens[h])
+        if not L:  # an empty read never survives the gate
+            continue
+        got = vtr.walk({k: v[:, h] for k, v in ys.items()}, L, K)
+        want = vtr.walk({k: v[:, h] for k, v in pys.items()}, L, K)
+        if got != want:
+            raise SystemExit(f"{what}: walked path of hit {h} differs")
+        n += 1
+    return n
 
 
 def mixed_reads(rng, db):
@@ -499,6 +717,145 @@ def check_planted(hit_pairs: set, planted: dict, what: str) -> None:
     if missed:
         raise SystemExit(f"{what}: planted (read, profile) {missed} missed")
     print(f"{what}: all {len(planted)} planted reads hit")
+
+
+@contextlib.contextmanager
+def counting_trace_dp():
+    """Counts calls of trace_dp, the traceback's plain version, while
+    the block runs: the main path on a card must make none."""
+    from deciphon_tpu_torch.ops import viterbi_trace as vtr
+
+    real, calls = vtr.trace_dp, [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    vtr.trace_dp = counted
+    try:
+        yield calls
+    finally:
+        vtr.trace_dp = real
+
+
+def trace_chunks(engine) -> int:
+    """Traceback launches the engine's last scan should have made: one
+    per chunk of TRACE_BATCH hits of each (width, read class) group."""
+    from deciphon_tpu_torch.ops.viterbi_trace import TRACE_BATCH
+
+    return sum(-(-len(items) // TRACE_BATCH) for items in
+               engine.trace_groups(engine.last_survivors).values())
+
+
+def check_trace_launches(engine, plain_calls: int, what: str) -> int:
+    """The scan's pass 2 ran the kernel once per chunk and never
+    trace_dp; returns its launches."""
+    n, want = trace_launches(), trace_chunks(engine)
+    if n != want or not n or plain_calls:
+        raise SystemExit(f"{what}: {n} {TRACE_NAME} launches, want {want} "
+                         f"(> 0), and {plain_calls} trace_dp calls (want 0)")
+    return n
+
+
+def pass2_replay(engine, seqs, hits, dev, clock, what: str) -> dict:
+    """Pass 2 of the engine's last scan, replayed chunk by chunk through
+    the pieces of viterbi_alt_batch, each timed: host block build,
+    upload (pack_trace), kernel (CUDA events), D2H copy, walk, codec;
+    then trace_dp on the card on the same chunk.  Every array must equal
+    trace_dp's, the paths be identical, and each survivor's path and
+    match string equal the scan's hit."""
+    import torch
+
+    from deciphon_tpu_torch.models import codec
+    from deciphon_tpu_torch.ops import viterbi_trace as vtr
+
+    p = engine.params
+    encoded, _ = engine.encode(seqs)
+    by_pair = {(h.seq_idx, h.profile_idx): h for h in hits}
+    t = dict.fromkeys(("build", "upload", "d2h", "walk", "codec",
+                       "plain"), 0.0)
+    rec = dict(kernel_ms=0.0, worst=0.0, nbytes=0, cells=0, chunks=0,
+               hits=0, block_bytes=0, groups=[])
+    for (kpad, codes), items in engine.trace_groups(
+            engine.last_survivors).items():
+        rec["groups"].append(f"{kpad}/{'+'.join(codes) or 'ACGT'}:"
+                             f"{len(items)}")
+        profs = [engine.db.profile(gi) for _, gi, *_ in items]
+        chunks = vtr.chunks(profs, [encoded[si] for si, *_ in items], kpad,
+                            codes)
+        lo = 0
+        while True:
+            t0 = time.perf_counter()
+            try:
+                H, block, eidx, lens = next(chunks)
+            except StopIteration:
+                break
+            t1 = time.perf_counter()
+            pk = vtr.pack_trace(block, eidx, lens, p.multi_hits,
+                                p.hmmer3_compat, dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            out = []
+            rec["kernel_ms"] += timed_ms(
+                lambda: out.append(vtr.launch_trace(pk)))
+            t3 = time.perf_counter()
+            ys = out[0].host()
+            t4 = time.perf_counter()
+            K = block.fm.shape[1]
+            paths = [vtr.walk({k: v[:, h] for k, v in ys.items()},
+                              int(lens[h]), K) for h in range(H)]
+            t5 = time.perf_counter()
+            matches = [
+                codec.render_match(codec.match_steps(
+                    prof, seqs[si].data, path))
+                for (si, *_), prof, path in zip(items[lo:lo + H],
+                                                profs[lo:lo + H], paths)
+            ]
+            t6 = time.perf_counter()
+            _, pys = vtr.trace_dp(block, eidx, lens, p.multi_hits,
+                                  p.hmmer3_compat, dev)
+            t7 = time.perf_counter()
+            for key, dt in zip(("build", "upload", "d2h", "walk", "codec",
+                                "plain"),
+                               (t1 - t0, t2 - t1, t4 - t3, t5 - t4,
+                                t6 - t5, t7 - t6)):
+                t[key] += dt
+            cw = f"{what} pass 2, group (K={kpad}, {codes or 'ACGT'})"
+            rec["worst"] = max(rec["worst"], compare_ys(ys, pys, lens, cw))
+            compare_paths(ys, pys, lens, H, K, cw)
+            for (si, gi, *_), path, match in zip(items[lo:lo + H], paths,
+                                                 matches):
+                hit = by_pair[(si, gi)]
+                if hit.path != path or hit.match != match:
+                    raise SystemExit(f"{cw}: hit ({si}, {gi}) differs from "
+                                     "the replayed chunk")
+            nb, nc = trace_work(H, block, eidx, lens)
+            rec["nbytes"] += nb
+            rec["cells"] += nc
+            rec["chunks"] += 1
+            rec["hits"] += H
+            rec["block_bytes"] = max(rec["block_bytes"], block.fm.nbytes)
+            lo += H
+            del pk, out
+    rec.update(t)
+    rec["plain_ms"] = 1e3 * t["plain"]
+    b_ms, b_by = bound(rec["nbytes"], rec["cells"], "trace", clock)
+    kernel_path = (t["build"] + t["upload"] + 1e-3 * rec["kernel_ms"]
+                   + t["d2h"] + t["walk"] + t["codec"])
+    plain_path = t["build"] + t["plain"] + t["walk"] + t["codec"]
+    print(f"{what} pass 2 replay: {rec['hits']} hits in {rec['chunks']} "
+          f"chunks (width/class:hits {' '.join(rec['groups'])}; largest "
+          f"host match table {rec['block_bytes']} B), every array equal trace_dp's on the card (VT max|d| "
+          f"{rec['worst']:.3g}), paths and match strings equal the scan's; "
+          f"host block build {t['build']:.4f} s, upload {t['upload']:.4f} "
+          f"s, kernel {rec['kernel_ms']:.3f} ms (CUDA events), D2H "
+          f"{t['d2h']:.4f} s, walk {t['walk']:.4f} s, codec "
+          f"{t['codec']:.4f} s: {kernel_path:.4f} s (host clock); with "
+          f"trace_dp on the card instead ({t['plain']:.4f} s): "
+          f"{plain_path:.4f} s; kernel bound {b_ms:.4f} ms by {b_by} "
+          f"({rec['nbytes']} B, {rec['cells']} node-positions), kernel at "
+          f"{100 * b_ms / max(rec['kernel_ms'], 1e-9):.2f}% of it")
+    return rec
 
 
 def phase_main_path(dev, workdir: str, clock: float):
@@ -559,8 +916,11 @@ def phase_main_path(dev, workdir: str, clock: float):
               f"{time.perf_counter() - t0:.2f} s")
         encoded, classes = engine.encode(seqs)
         reset_launches()
-        hits = engine.scan(seqs)
+        with counting_trace_dp() as plain_calls:
+            hits = engine.scan(seqs)
         launches = dict(vc.LAUNCHES)
+        tb = check_trace_launches(engine, plain_calls[0],
+                                  f"main path {algo}")
         want = len(engine.blocks) * len(classes)
         other = sum(n for s, n in launches.items() if s != semiring)
         if launches[semiring] != want or other:
@@ -577,7 +937,8 @@ def phase_main_path(dev, workdir: str, clock: float):
                              f"[{len(reads)}, {NPROF}]")
         print(f"engine scan: {launches[semiring]} {KERNEL_NAME[semiring]} "
               f"launches = {len(engine.blocks)} blocks x {len(classes)} "
-              "classes")
+              f"classes; pass 2: {tb} {TRACE_NAME} launches for "
+              f"{len(engine.last_survivors)} survivors, no trace_dp call")
         ctx["scores"][semiring] = engine.last_scores
         ctx["classes"] = len(classes)
         if semiring == "max":
@@ -663,6 +1024,11 @@ def phase_main_path(dev, workdir: str, clock: float):
               f"(host clock {min(h for _, h in scan_s):.4f} s), "
               f"{cells / warm / 1e9:.2f} GCUPS (3 x sum len x sum core, "
               f"{len(reads)} reads)")
+        trace = pass2_replay(engine, seqs, hits, dev, clock,
+                             f"main path {algo}")
+        trace["launches"] = tb
+        trace["pass2_s"] = tm["pass2"]
+        ctx.setdefault("trace", {})[semiring] = trace
         bound_ms, bound_by = bound(nbytes, node_pos, semiring, clock)
         print(f"bound {KERNEL_NAME[semiring]}: {bound_ms:.3f} ms by "
               f"{bound_by} ({1e12 * ops_seconds(semiring, clock):.4f} ps of "
@@ -711,7 +1077,8 @@ def scan_mesh():
 
 
 def phase_sharded(ctx) -> dict:
-    """Per semiring: launches of the sharded scans."""
+    """Per semiring: launches of the sharded scans; under TRACE_NAME the
+    traceback launches of both."""
     import torch
 
     from deciphon_tpu_torch.ops import viterbi_cuda as vc
@@ -732,8 +1099,10 @@ def phase_sharded(ctx) -> dict:
         print(f"sharded {algo}: {len(engine.blocks)} blocks, {ntiles} tiles, "
               f"base-4 tables built in {time.perf_counter() - t0:.2f} s")
         reset_launches()
-        hits = engine.scan(seqs)
+        with counting_trace_dp() as plain_calls:
+            hits = engine.scan(seqs)
         launches = dict(vc.LAUNCHES)
+        tb = check_trace_launches(engine, plain_calls[0], f"sharded {algo}")
         want = ntiles * ctx["classes"]
         other = sum(n for s, n in launches.items() if s != semiring)
         if launches[semiring] != want or other:
@@ -741,7 +1110,8 @@ def phase_sharded(ctx) -> dict:
                              f"{semiring} (tiles x classes)")
         print(f"sharded scan: {want} {KERNEL_NAME[semiring]} launches = "
               f"{ntiles} tiles over {len(engine.blocks)} blocks x "
-              f"{ctx['classes']} classes")
+              f"{ctx['classes']} classes; pass 2: {tb} {TRACE_NAME} "
+              "launches")
         for name, got, ref in zip(("alt", "null"), engine.last_scores,
                                   ctx["scores"][semiring]):
             if not np.array_equal(got, ref):
@@ -767,13 +1137,15 @@ def phase_sharded(ctx) -> dict:
               f"{warm:.4f} s vs unsharded {ctx['warm'][semiring]:.4f} s, "
               f"{ctx['cells'] / warm / 1e9:.2f} GCUPS")
         out[semiring] = launches[semiring]
+        out[TRACE_NAME] = out.get(TRACE_NAME, 0) + tb
         del engine
         torch.cuda.empty_cache()
     return out
 
 
 def phase_daemon(ctx, workdir: str) -> dict:
-    """Per semiring: launches of the daemon's scan jobs."""
+    """Per semiring, and under TRACE_NAME: launches of the daemon's scan
+    jobs."""
     from deciphon_tpu_torch.ops import viterbi_cuda as vc
     from deciphon_tpu_torch.server.daemon import Server
     from deciphon_tpu_torch.server.fake_sched import FakeScheduler
@@ -782,7 +1154,7 @@ def phase_daemon(ctx, workdir: str) -> dict:
     db, seqs, planted = ctx["db"], ctx["seqs"], ctx["planted"]
     fake = FakeScheduler(spool_dir=os.path.join(workdir, "sched"))
     url = fake.serve()
-    launches = dict.fromkeys(TOL, 0)
+    launches = dict.fromkeys((*TOL, TRACE_NAME), 0)
     try:
         cfg = ServerConfig(cache_dir=os.path.join(workdir, "daemon"),
                            api_url=url, single_run=True)
@@ -821,13 +1193,21 @@ def phase_daemon(ctx, workdir: str) -> dict:
             try:
                 scan = fake.add_scan(db_meta.id, records)
                 reset_launches()
-                job_s = run_job(scan.job_id, mode)
+                with counting_trace_dp() as plain_calls:
+                    job_s = run_job(scan.job_id, mode)
                 for k, n in vc.LAUNCHES.items():
                     launches[k] += n
+                tb = trace_launches()
+                launches[TRACE_NAME] += tb
             finally:
                 os.environ.pop("DCP_BEST_HIT", None)
             if vc.LAUNCHES["max"] == 0:
                 raise SystemExit(f"daemon {mode}: no kernel launch")
+            # a scan job traces its survivors on the kernel; a best-hit
+            # job has no pass 2
+            if (tb == 0) == (mode == "scan") or plain_calls[0]:
+                raise SystemExit(f"daemon {mode}: {tb} {TRACE_NAME} "
+                                 f"launches, {plain_calls[0]} trace_dp calls")
             # the scheduler numbers this scan's reads in input order
             index = {q.id: i for i, q in enumerate(fake.seqs[scan.id])}
             rows_of[mode] = [
@@ -837,7 +1217,8 @@ def phase_daemon(ctx, workdir: str) -> dict:
             ]
             print(f"daemon {mode}: {job_s:.2f} s (host clock), "
                   f"{len(rows_of[mode])} rows, {vc.LAUNCHES['max']} "
-                  f"{KERNEL_NAME['max']} launches")
+                  f"{KERNEL_NAME['max']} launches, {tb} {TRACE_NAME} "
+                  "launches")
         acc = [db.profile(i).accession for i in range(db.nprofiles)]
         want = {
             "scan": [(h.seq_idx, h.accession, h.alt_loglik, h.null_loglik,
@@ -1059,11 +1440,13 @@ def phase_standard_dcp_parity(dev, workdir: str) -> None:
         raise SystemExit(f"parity:\n{out}")
 
 
-def phase_trace(ctx, dev, workdir: str) -> tuple[int, str]:
-    """(viterbi_max launches, summary line) of one warm Viterbi scan of
+def phase_trace(ctx, dev, workdir: str) -> tuple[int, int, str]:
+    """(viterbi_max launches, traceback launches, summary line) of one
+    warm Viterbi scan of
     TRACE_READS of phase 3's ACGT reads under DCP_PROFILE_DIR: one
     planted read and the first non-planted ones, so pass 2 traces one
-    survivor.  The Chrome trace must name the Viterbi kernel; prints the
+    survivor.  The Chrome trace must name the Viterbi and the traceback
+    kernels; prints the
     kernel time by name and the device's idle share of the window from
     the first to the last device event."""
     import glob
@@ -1088,9 +1471,11 @@ def phase_trace(ctx, dev, workdir: str) -> tuple[int, str]:
     try:
         reset_launches()
         t0 = time.perf_counter()
-        hits = engine.scan(chosen)
+        with counting_trace_dp() as plain_calls:
+            hits = engine.scan(chosen)
         traced_s = time.perf_counter() - t0
         launches = vc.LAUNCHES["max"]
+        tb = check_trace_launches(engine, plain_calls[0], "traced scan")
     finally:
         os.environ.pop("DCP_PROFILE_DIR")
     if (hit, planted[hit]) not in {(h.seq_id, h.profile_idx) for h in hits}:
@@ -1107,10 +1492,11 @@ def phase_trace(ctx, dev, workdir: str) -> tuple[int, str]:
     for e in dev_events:
         if e["cat"] == "kernel":
             by_name.setdefault(e["name"], []).append(float(e["dur"]))
-    if not any("viterbi_kernel" in n for n in by_name):
-        raise SystemExit("traced scan: no viterbi_kernel device event in "
-                         f"{files[0]} ({len(dev_events)} device events: is "
-                         "CUPTI missing?)")
+    for kname in ("viterbi_kernel", "traceback_kernel"):
+        if not any(kname in n for n in by_name):
+            raise SystemExit(f"traced scan: no {kname} device event in "
+                             f"{files[0]} ({len(dev_events)} device events: "
+                             "is CUPTI missing?)")
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                    for e in dev_events)
     busy, end = 0.0, spans[0][0]
@@ -1120,22 +1506,25 @@ def phase_trace(ctx, dev, workdir: str) -> tuple[int, str]:
     window = end - spans[0][0]
     idle = 1.0 - busy / window
     print(f"traced scan: {len(chosen)} reads, {len(hits)} hits, "
-          f"{launches} viterbi_max launches, {traced_s:.3f} s under the "
+          f"{launches} viterbi_max launches, {tb} {TRACE_NAME} launches, "
+          f"{traced_s:.3f} s under the "
           f"profiler (host clock); trace {os.path.getsize(files[0])} B, "
           f"{len(events)} events, {len(dev_events)} on the device")
     kernel_total = sum(map(sum, by_name.values()))
     for name, durs in sorted(by_name.items(), key=lambda kv: -sum(kv[1])):
         print(f"  kernel time {sum(durs) / 1e3:.3f} ms x {len(durs)} "
               f"({100 * sum(durs) / kernel_total:.1f}%): {name[:100]}")
-    vit = sum(sum(d) for n, d in by_name.items() if "viterbi_kernel" in n)
+    vit, tbk = (sum(sum(d) for n, d in by_name.items() if k in n)
+                for k in ("viterbi_kernel", "traceback_kernel"))
     summary = (f"trace: device window {window / 1e3:.3f} ms, busy "
                f"{busy / 1e3:.3f} ms, idle share {100 * idle:.1f}%; kernels "
                f"{kernel_total / 1e3:.3f} ms in {len(by_name)} names, "
-               f"viterbi_kernel {vit / 1e3:.3f} ms")
+               f"viterbi_kernel {vit / 1e3:.3f} ms, traceback_kernel "
+               f"{tbk / 1e3:.3f} ms")
     print(summary)
     del engine
     torch.cuda.empty_cache()
-    return launches, summary
+    return launches, tb, summary
 
 
 def main(argv: list[str]) -> int:
@@ -1167,6 +1556,8 @@ def main(argv: list[str]) -> int:
             print(f"  ptxas: {line.strip()}")
     menu_err = phase_kernel_menu(dev)
     print(f"menu done at {time.perf_counter() - t_start:.1f} s")
+    menu_err[TRACE_NAME] = phase_trace_menu(dev)
+    print(f"trace menu done at {time.perf_counter() - t_start:.1f} s")
     if menu_only:  # phases 1-2: the build and the menu, then stop
         return 0
     # scratch for the synthetic DB and reads, inside the checkout
@@ -1184,7 +1575,7 @@ def main(argv: list[str]) -> int:
         distributed = phase_distributed(ctx, workdir, dev)
         print(f"distributed done at {time.perf_counter() - t_start:.1f} s")
         phase_standard_dcp_parity(dev, workdir)
-        traced, trace_summary = phase_trace(ctx, dev, workdir)
+        traced, traced_tb, trace_summary = phase_trace(ctx, dev, workdir)
         print(f"host entry points and trace done at "
               f"{time.perf_counter() - t_start:.1f} s (phases 6-7: "
               f"{time.perf_counter() - t6:.1f} s)")
@@ -1208,6 +1599,26 @@ def main(argv: list[str]) -> int:
             **rec,
             "paths": {k: n for k, n in per_path.items() if n},
         })
+    # pass 2's kernel: the two phase-3 scans (Viterbi and forward) are
+    # its main path; times and bound over their chunks' replays
+    tr = ctx["trace"].values()
+    t_bytes = sum(r["nbytes"] for r in tr)
+    t_cells = sum(r["cells"] for r in tr)
+    t_bound, t_by = bound(t_bytes, t_cells, "trace", clock)
+    per_path = dict(zip(PATHS, (
+        sum(r["launches"] for r in tr), sharded[TRACE_NAME],
+        daemon[TRACE_NAME], 0, traced_tb,
+    )))
+    kernels.append({
+        "name": TRACE_NAME, "route": "cuda", "source": TRACE_SOURCE,
+        "replaces": TRACE_REPLACES, "launches": per_path["scan"],
+        "max_abs_err": max(menu_err[TRACE_NAME],
+                           *(r["worst"] for r in tr)),
+        "ms": sum(r["kernel_ms"] for r in tr),
+        "plain_ms": sum(r["plain_ms"] for r in tr),
+        "bound_ms": t_bound, "bound_by": t_by, "library_ms": None,
+        "paths": {k: n for k, n in per_path.items() if n},
+    })
     print(trace_summary)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")

@@ -92,9 +92,11 @@ def _library() -> SimpleNamespace:
         BUILD_SECONDS = time.perf_counter() - t0
     viterbi = ctypes.CDLL(str(out / "viterbi.so"))
     forward = ctypes.CDLL(str(out / "forward.so"))
+    traceback = ctypes.CDLL(str(out / "traceback.so"))
     lib = SimpleNamespace(
         dcp_viterbi_max=viterbi.dcp_viterbi_max,
         dcp_viterbi_lse=forward.dcp_viterbi_lse,
+        dcp_traceback=traceback.dcp_traceback,
         dcp_cuda_error_string=viterbi.dcp_cuda_error_string,
     )
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -107,7 +109,13 @@ def _library() -> SimpleNamespace:
     common = [p, p, p, p, p, p, f, f, p, p, i, i, i, i, i]
     lib.dcp_viterbi_max.argtypes = common + [i] * 6 + [p]
     lib.dcp_viterbi_lse.argtypes = common + [p]
-    for fn in (lib.dcp_viterbi_max, lib.dcp_viterbi_lse):
+    # the traceback kernel (traceback.cu): (fmT, fin, planes, eidx, sp,
+    #  t_EJ, t_EC, scratch, bpM, bpI, dD, bpE, bpN, bpJ, bpC, bpB, bpT,
+    #  VT, H, K, ntab, Lmax, npt, threads, smem, ring_in_smem, stream);
+    #  viterbi_trace.launch_trace
+    lib.dcp_traceback.argtypes = (
+        [p] * 5 + [f, f] + [p] * 11 + [i] * 8 + [p])
+    for fn in (lib.dcp_viterbi_max, lib.dcp_viterbi_lse, lib.dcp_traceback):
         fn.restype = i
     lib.dcp_cuda_error_string.argtypes = [i]
     lib.dcp_cuda_error_string.restype = ctypes.c_char_p

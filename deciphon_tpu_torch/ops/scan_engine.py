@@ -13,7 +13,9 @@ passes:
     recurrence on the CPU).  Every launch is queued before one host
     sync per device; then the LRT gate (xmath.h:236-247).
   pass 2 (survivors only): backpointer Viterbi DP + host walk
-    (ops/viterbi_trace.py), decoded into match strings by the codec.
+    (ops/viterbi_trace.py; the DP is the traceback kernel on a card,
+    one launch per chunk of a (width, read class) group, and plain torch
+    on the CPU), decoded into match strings by the codec.
     Under forward the hits carry forward logliks and the Viterbi path,
     as in the reference (scan_engine.py:58-63).
 
@@ -222,6 +224,8 @@ class ScanEngine:
         # host-clock seconds of the last scan's phases (pass 1 ends in
         # the scan's syncs, so it includes the device time)
         self.last_timings: dict = {}
+        # the last scan's LRT survivors, as trace_groups takes them
+        self.last_survivors: list = []
 
     def packed(self, blk: Block, codes: tuple = ()) -> vc.CudaBlock:
         """An unsharded engine's kernel-layout tables of ``blk``: the
@@ -311,6 +315,7 @@ class ScanEngine:
                 for si, gi in np.argwhere(ok)
             ]
         t2 = time.perf_counter()
+        self.last_survivors = survivors
         with record_function("pass2"):
             hits = self._traceback(seqs, encoded, survivors)
         self.last_timings = dict(
@@ -423,15 +428,21 @@ class ScanEngine:
                 off += n
         return [(r, c, h) for (r, c, _), h in zip(pieces, host)]
 
-    def _traceback(self, seqs, encoded, survivors) -> list[Hit]:
-        """Pass 2, batched by (padded width, read class): one DP per
-        group."""
+    def trace_groups(self, survivors) -> dict[tuple, list]:
+        """Pass 2's groups of survivors (read index, DB index, codes, alt,
+        null, lrt), keyed by (padded width, read class)."""
         groups: dict[tuple, list] = {}
         for item in survivors:
             key = (self._kpad_of[item[1]], item[2])
             groups.setdefault(key, []).append(item)
+        return groups
+
+    def _traceback(self, seqs, encoded, survivors) -> list[Hit]:
+        """Pass 2, batched by (padded width, read class): one DP per
+        group, in chunks of TRACE_BATCH hits (on a card one launch of the
+        traceback kernel per chunk)."""
         hits: list[Hit] = []
-        for (kpad, codes), items in groups.items():
+        for (kpad, codes), items in self.trace_groups(survivors).items():
             profs = [self.db.profile(gi) for _, gi, *_ in items]
             results = vtr.viterbi_alt_batch(
                 profs, [encoded[si] for si, *_ in items],

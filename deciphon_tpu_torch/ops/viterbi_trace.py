@@ -1,10 +1,12 @@
-"""Pass-2 traceback: backpointer Viterbi DP in torch + host path walk.
+"""Pass-2 traceback: backpointer Viterbi DP + host path walk.
 
 The counterpart of deciphon_tpu/ops/viterbi_trace.py.  Only LRT
-survivors reach it, so it is plain torch on the engine's device (the
-reference runs it as ``lax.scan``, not Pallas): one DP over a stack of
-(profile, read) hits with per-position argmax codes, then an O(path) walk
-of the codes on the host.
+survivors reach it: one DP over a stack of (profile, read) hits with
+per-position argmax codes, then an O(path) walk of the codes on the
+host.  On the card the DP is one launch of the Hopper kernel
+csrc/traceback.cu per chunk of hits (``trace_kernel``, the counterpart
+of the jitted ``_trace_scan_batch`` :266); ``trace_dp`` is its plain
+torch version, which the CPU runs.
 
 Tie-breaking replicates the reference exactly: candidates flatten in
 (fragment length ascending, origin ascending) order and the first maximum
@@ -15,6 +17,9 @@ identical, not merely equal in score.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,6 +37,18 @@ from deciphon_tpu_torch.ops.viterbi_torch import (
 
 # survivors per traceback DP: bounds the [L, H, K] backpointer tensors
 TRACE_BATCH = 128
+# the ten per-position outputs of the DP, in trace_dp's order
+YS = ("bpM", "bpI", "dD", "bpE", "bpN", "bpJ", "bpC", "bpB", "bpT", "VT")
+# planes of the kernel's [H, 9, K] tensor (csrc/traceback.cu P_*)
+TRACE_PLANES = ("entry", "mm_in", "im_in", "dm_in", "mi", "ii", "md_next",
+                "cdd_next", "cdd")
+# launches of csrc/traceback.cu made by trace_kernel (callers that must
+# show a run went through the kernel set it to 0 before and read it after)
+LAUNCHES = {"traceback": 0}
+MAX_THREADS = 512  # the kernel's __launch_bounds__
+# dynamic shared memory a CTA may take (the card's 227 KB opt-in, less
+# the kernel's static arrays and a margin)
+SMEM_MAX = 232448 - 1024
 
 
 def _push(ring, new):
@@ -42,11 +59,40 @@ def _shift_k(a):  # along the node axis: a[..., k] -> a[..., k-1]
     return torch.cat([torch.full_like(a[..., :1], NEG), a[..., :-1]], -1)
 
 
+def _upload(block: ProfileBlock, eidx: np.ndarray, seq_len: np.ndarray,
+            multi_hits: bool, hmmer3_compat: bool, dev: torch.device):
+    """A chunk's tensors on ``dev`` for the DP, plain or kernel: the
+    block's tables and transitions, eidx (int64), the specials and the
+    D-chain's cdd, md_next and cdd_next, computed by the same torch calls
+    for both versions (a cumsum on the card rounds as a parallel scan)."""
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    d = {n: t(getattr(block, n)) for n in (
+        "fm", "fi", "fn", "entry", "mm_in", "im_in", "dm_in", "md_in",
+        "dd_in", "mi", "ii",
+    )}
+    H = d["fm"].shape[0]
+    xt = specials(t(np.asarray(seq_len, np.int32)), multi_hits,
+                  hmmer3_compat)
+    d.update(NN=xt["NN"], NB=xt["NB"], EJ=xt["EJ"], EC=xt["EC"])
+    dd_safe = torch.clamp_min(d["dd_in"], NEG / 1e6)
+    dd_safe[:, 0] = 0.0
+    d["cdd"] = torch.cumsum(dd_safe, 1)
+    d["neg1"] = torch.full((H, 1), NEG, device=dev)
+    d["md_next"] = torch.cat([d["md_in"][:, 1:], d["neg1"]], 1)
+    d["cdd_next"] = torch.cat([d["cdd"][:, 1:], d["cdd"][:, -1:]], 1)
+    d["eidx"] = t(np.asarray(eidx, np.int64))
+    return d
+
+
 def trace_dp(block: ProfileBlock, eidx: np.ndarray, seq_len: np.ndarray,
              multi_hits: bool, hmmer3_compat: bool, device="cpu"):
     """Backpointer Viterbi over H (profile, read) pairs: row h of
-    ``block`` against read h.  Returns (alt [H], ys) with ys numpy
-    arrays indexed [position-1, h, ...]:
+    ``block`` against read h, in plain torch on ``device`` (the kernel's
+    plain version).  Returns (alt [H], ys) with ys numpy arrays indexed
+    [position-1, h, ...]:
       bpM, bpI [L, H, K] flattened (l-1)*origins + origin
       dD [L, H, K] bool: the D-chain extends (origin D) vs enters from M
       bpE [L, H] in [0, 2K): < K -> M_k, else D_{k-K}
@@ -54,28 +100,16 @@ def trace_dp(block: ProfileBlock, eidx: np.ndarray, seq_len: np.ndarray,
       bpB [L, H] 0=S 1=N 2=E 3=J;  bpT [L, H] 0=E 1=C
     """
     dev = torch.device(device)
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    fm, fi, fn = t(block.fm), t(block.fi), t(block.fn)
-    entry, mm_in, im_in, dm_in, md_in, dd_in, mi, ii = (
-        t(getattr(block, n)) for n in (
-            "entry", "mm_in", "im_in", "dm_in", "md_in", "dd_in", "mi", "ii"
-        )
+    d = _upload(block, eidx, seq_len, multi_hits, hmmer3_compat, dev)
+    fm, fi, fn = d["fm"], d["fi"], d["fn"]
+    entry, mm_in, im_in, dm_in, mi, ii = (
+        d[n] for n in ("entry", "mm_in", "im_in", "dm_in", "mi", "ii")
     )
     H, K, _ = fm.shape
-    slen = t(np.asarray(seq_len, np.int32))
-    xt = specials(slen, multi_hits, hmmer3_compat)
-    NN, NB, RR = xt["NN"], xt["NB"], xt["RR"]
-    EJ, EC = xt["EJ"], xt["EC"]
-
-    dd_safe = torch.clamp_min(dd_in, NEG / 1e6)
-    dd_safe[:, 0] = 0.0
-    cdd = torch.cumsum(dd_safe, 1)
-    neg1 = torch.full((H, 1), NEG, device=dev)
-    md_next = torch.cat([md_in[:, 1:], neg1], 1)
-    cdd_next = torch.cat([cdd[:, 1:], cdd[:, -1:]], 1)
+    NN, NB, EJ, EC = d["NN"], d["NB"], d["EJ"], d["EC"]
+    cdd, md_next, cdd_next, neg1 = (
+        d[n] for n in ("cdd", "md_next", "cdd_next", "neg1")
+    )
     node0 = torch.arange(K, device=dev) == 0
 
     neg_k = torch.full((5, H, K), NEG, device=dev)
@@ -83,14 +117,12 @@ def trace_dp(block: ProfileBlock, eidx: np.ndarray, seq_len: np.ndarray,
     VM = VI = VD = neg_k
     VS = neg_5.clone()
     VS[0] = 0.0
-    VN = VJ = VC = VE = VR = neg_5
+    VN = VJ = VC = VE = neg_5
     VB = neg_5.clone()
     VB[0] = NB
-    eidx_d = t(np.asarray(eidx, np.int64))
+    eidx_d = d["eidx"]
     Lmax = int(np.max(seq_len))
-    outs = {k: [] for k in (
-        "bpM", "bpI", "dD", "bpE", "bpN", "bpJ", "bpC", "bpB", "bpT", "VT"
-    )}
+    outs = {k: [] for k in YS}
     for pos in range(Lmax):
         idx = eidx_d[:, pos]  # [H, 5]
         em_m = torch.gather(
@@ -125,8 +157,6 @@ def trace_dp(block: ProfileBlock, eidx: np.ndarray, seq_len: np.ndarray,
         VNn = candN.reshape(10, H).amax(0)
         VJn = candJ.reshape(10, H).amax(0)
         VCn = candC.reshape(10, H).amax(0)
-        # null-model R loop: [5] candidates in l order
-        VRn = (torch.maximum(VR + RR, VS) + em_n).amax(0)
 
         # D-chain via prefix cummax; binary bp: direct M_{k-1} vs chain
         a = VMn + md_next - cdd_next
@@ -151,7 +181,7 @@ def trace_dp(block: ProfileBlock, eidx: np.ndarray, seq_len: np.ndarray,
         VM, VI, VD = _push(VM, VMn), _push(VI, VIn), _push(VD, VDn)
         VS = _push(VS, torch.full_like(VNn, NEG))
         VN, VJ, VC = _push(VN, VNn), _push(VJ, VJn), _push(VC, VCn)
-        VE, VB, VR = _push(VE, VEn), _push(VB, VBn), _push(VR, VRn)
+        VE, VB = _push(VE, VEn), _push(VB, VBn)
         for k, v in (
             ("bpM", bpM.to(torch.int8)), ("bpI", bpI.to(torch.int8)),
             ("dD", dD), ("bpE", bpE.to(torch.int32)), ("bpN", bpN),
@@ -160,6 +190,157 @@ def trace_dp(block: ProfileBlock, eidx: np.ndarray, seq_len: np.ndarray,
         ):
             outs[k].append(v)
     ys = {k: torch.stack(v).cpu().numpy() for k, v in outs.items()}
+    alt = ys["VT"][np.asarray(seq_len) - 1, np.arange(H)]
+    return alt, ys
+
+
+class TracePlan(NamedTuple):
+    """Launch shape of the traceback kernel for width K."""
+
+    npt: int  # consecutive nodes a thread
+    threads: int  # threads of the one CTA per hit
+    smem: int  # dynamic shared bytes
+    ring_in_smem: bool  # else the rings are device-memory scratch
+
+
+def trace_plan(K: int) -> TracePlan:
+    """One CTA per hit: 1, 2, 4 or 8 nodes a thread up to K = 512, 1024,
+    2048, 4096 (at most MAX_THREADS threads); the M, I and D rings, 15 (K
+    + 1) floats, in shared memory where they fit beside the D-chain's
+    2 (K + 2), else in device memory."""
+    if not 0 < K <= 4096:
+        raise ValueError(f"K={K}: need 1..4096")
+    npt = next(n for n in (1, 2, 4, 8) if K <= n * MAX_THREADS)
+    threads = 32 * -(-K // (32 * npt))  # whole warps over ceil(K / npt)
+    ring = 4 * (15 * (K + 1) + 2 * (K + 2)) <= SMEM_MAX
+    floats = (15 * (K + 1) if ring else 0) + 2 * (K + 2)
+    return TracePlan(npt, threads, 4 * floats, ring)
+
+
+class TracePack(NamedTuple):
+    """A chunk in the kernel's layout, on its device."""
+
+    fmT: torch.Tensor  # [H, ntab, K] f32, rows contiguous along K
+    fin: torch.Tensor  # [H, 2, ntab] f32: fi, fn
+    planes: torch.Tensor  # [H, 9, K] f32, TRACE_PLANES
+    eidx: torch.Tensor  # [H, Lmax, 5] int32
+    sp: torch.Tensor  # [H, 2] f32: NN, NB
+    EJ: float
+    EC: float
+
+
+def pack_trace(block: ProfileBlock, eidx: np.ndarray, seq_len: np.ndarray,
+               multi_hits: bool, hmmer3_compat: bool, device) -> TracePack:
+    """The kernel's inputs: trace_dp's uploaded tensors (``_upload``), the
+    match tables transposed so that a fragment row is contiguous along
+    the nodes, the planes stacked, eidx cut to the chunk's Lmax rows."""
+    d = _upload(block, eidx, seq_len, multi_hits, hmmer3_compat,
+                torch.device(device))
+    Lmax = int(np.max(seq_len)) if len(seq_len) else 0
+    return TracePack(
+        fmT=d["fm"].transpose(1, 2).contiguous(),
+        fin=torch.stack([d["fi"], d["fn"]], 1).contiguous(),
+        planes=torch.stack([d[n] for n in TRACE_PLANES], 1).contiguous(),
+        eidx=d["eidx"][:, :Lmax].to(torch.int32).contiguous(),
+        sp=torch.stack([d["NN"], d["NB"]], 1).contiguous(),
+        EJ=float(d["EJ"]), EC=float(d["EC"]),
+    )
+
+
+class TraceOut(NamedTuple):
+    """The kernel's outputs in one device buffer, copied to the host in
+    one transfer."""
+
+    buf: torch.Tensor  # uint8
+    views: dict  # name -> (offset, numpy dtype, shape)
+
+    def host(self) -> dict:
+        """ys as numpy arrays, as trace_dp returns them."""
+        raw = self.buf.cpu().numpy()
+        return {
+            k: raw[off:off + int(np.prod(shape)) * np.dtype(dt).itemsize]
+            .view(dt).reshape(shape)
+            for k, (off, dt, shape) in self.views.items()
+        }
+
+
+def _layout(L: int, H: int, K: int) -> tuple[dict, int]:
+    """(name -> (byte offset, numpy dtype, shape), total bytes) of the
+    output buffer: the YS arrays in trace_dp's shapes, each 16-aligned."""
+    views, off = {}, 0
+    for k in YS:
+        if k in ("bpM", "bpI", "dD"):
+            dt, shape = (np.bool_ if k == "dD" else np.int8), (L, H, K)
+        else:
+            dt, shape = (np.float32 if k == "VT" else np.int32), (L, H)
+        views[k] = (off, dt, shape)
+        off += -(-int(np.prod(shape)) * np.dtype(dt).itemsize // 16) * 16
+    return views, off
+
+
+def launch_trace(pk: TracePack) -> TraceOut:
+    """One launch of csrc/traceback.cu over the chunk ``pk``, on its
+    device; no fallback: a failed build or launch raises."""
+    from deciphon_tpu_torch.ops import _build
+
+    dev = pk.fmT.device
+    if dev.type != "cuda":
+        raise ValueError(f"the traceback kernel runs on a card, not {dev} "
+                         "(trace_dp is the plain version)")
+    lib = _build.library()
+    H, ntab, K = pk.fmT.shape
+    Lmax = pk.eidx.shape[1]
+    for name, t, dt, shape in (
+        ("fmT", pk.fmT, torch.float32, (H, ntab, K)),
+        ("fin", pk.fin, torch.float32, (H, 2, ntab)),
+        ("planes", pk.planes, torch.float32, (H, len(TRACE_PLANES), K)),
+        ("eidx", pk.eidx, torch.int32, (H, Lmax, 5)),
+        ("sp", pk.sp, torch.float32, (H, 2)),
+    ):
+        if (t.device != dev or t.dtype != dt or not t.is_contiguous()
+                or tuple(t.shape) != shape):
+            raise ValueError(f"{name}: need a contiguous {dt} {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    plan = trace_plan(K)
+    views, nbytes = _layout(Lmax, H, K)
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    if H == 0 or Lmax == 0:
+        return TraceOut(buf, views)
+    # the M, I and D rings where they do not fit in shared memory
+    scratch = (None if plan.ring_in_smem else
+               torch.empty((H, 15, K + 1), dtype=torch.float32, device=dev))
+
+    def ptr(k):
+        return buf.data_ptr() + views[k][0]
+    with torch.cuda.device(dev):
+        rc = lib.dcp_traceback(
+            pk.fmT.data_ptr(), pk.fin.data_ptr(), pk.planes.data_ptr(),
+            pk.eidx.data_ptr(), pk.sp.data_ptr(), ctypes.c_float(pk.EJ),
+            ctypes.c_float(pk.EC),
+            0 if scratch is None else scratch.data_ptr(),
+            *(ptr(k) for k in YS), H, K, ntab, Lmax, plan.npt,
+            plan.threads, plan.smem, int(plan.ring_in_smem),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"traceback kernel launch failed: "
+                           f"{_build.error_string(rc)}")
+    LAUNCHES["traceback"] += 1
+    return TraceOut(buf, views)
+
+
+def trace_kernel(block: ProfileBlock, eidx: np.ndarray, seq_len: np.ndarray,
+                 multi_hits: bool, hmmer3_compat: bool, device="cuda"):
+    """``trace_dp``'s (alt, ys) from one launch of csrc/traceback.cu on
+    ``device`` (a card): the kernel is built first, so a missing
+    compiler raises before anything is uploaded."""
+    from deciphon_tpu_torch.ops import _build
+
+    _build.library()
+    pk = pack_trace(block, eidx, seq_len, multi_hits, hmmer3_compat, device)
+    ys = launch_trace(pk).host()
+    H = pk.fmT.shape[0]
     alt = ys["VT"][np.asarray(seq_len) - 1, np.arange(H)]
     return alt, ys
 
@@ -220,23 +401,13 @@ def walk(ys, L: int, K: int) -> list[tuple[int, int]]:
     return path
 
 
-def viterbi_alt_batch(
-    profs: list,
-    seqs: list[np.ndarray],
-    multi_hits: bool = True,
-    hmmer3_compat: bool = False,
-    kpad: int | None = None,
-    device="cpu",
-    codes: tuple | None = None,
-) -> list[vr.ViterbiResult]:
-    """Traceback of a stack of (profile, encoded read) hits, TRACE_BATCH
-    at a time with the hit axis padded to a power of two (the reference's
-    viterbi_alt_batch :281); walks stay per hit.  Reads holding the IUPAC
-    ``codes`` (encoded 4+j, alphabet.encode_extended) run on the
-    extended base-(4+D) tables.  The DP is Viterbi under either scan
-    semiring: a forward scan's hits still decode their best path."""
+def chunks(profs: list, seqs: list[np.ndarray], kpad: int | None = None,
+           codes: tuple | None = None):
+    """(H, block, eidx, lens) per chunk of TRACE_BATCH hits, the hit axis
+    padded to a power of two with copies of the chunk's first hit (the
+    reference's viterbi_alt_batch :281): H real hits, host block and
+    eidx of every padded hit."""
     base = 4 + len(codes) if codes else 4
-    out: list[vr.ViterbiResult] = []
     for lo in range(0, len(profs), TRACE_BATCH):
         chunk_p = profs[lo : lo + TRACE_BATCH]
         chunk_s = seqs[lo : lo + TRACE_BATCH]
@@ -255,9 +426,28 @@ def viterbi_alt_batch(
             for s in pad_s
         ])
         lens = np.array([len(s) for s in pad_s], np.int32)
-        alt, ys = trace_dp(
-            block, eidx, lens, multi_hits, hmmer3_compat, device
-        )
+        yield H, block, eidx, lens
+
+
+def viterbi_alt_batch(
+    profs: list,
+    seqs: list[np.ndarray],
+    multi_hits: bool = True,
+    hmmer3_compat: bool = False,
+    kpad: int | None = None,
+    device="cpu",
+    codes: tuple | None = None,
+) -> list[vr.ViterbiResult]:
+    """Traceback of a stack of (profile, encoded read) hits, one DP per
+    chunk of ``chunks``: the kernel on a card, ``trace_dp`` on the CPU;
+    walks stay per hit.  Reads holding the IUPAC ``codes`` (encoded 4+j,
+    alphabet.encode_extended) run on the extended base-(4+D) tables.
+    The DP is Viterbi under either scan semiring: a forward scan's hits
+    still decode their best path."""
+    trace = trace_kernel if torch.device(device).type == "cuda" else trace_dp
+    out: list[vr.ViterbiResult] = []
+    for H, block, eidx, lens in chunks(profs, seqs, kpad, codes):
+        alt, ys = trace(block, eidx, lens, multi_hits, hmmer3_compat, device)
         K = block.fm.shape[1]
         for h in range(H):
             ys_h = {k: v[:, h] for k, v in ys.items()}
