@@ -3,6 +3,14 @@
 
     python3 chip_smoke.py              # needs one CUDA card; ~8 min on an H100
     python3 chip_smoke.py --menu-only  # phases 1-2, then stop
+    python3 chip_smoke.py --trace-sweep [PARENT_TREE]
+        # phase 1, the pass-2 menu, then the traceback plans' sweep:
+        # trace_plan's plan against the alternatives of TRACE_SWEEP on the
+        # same chunks; with PARENT_TREE (an unpacked checkout of the commit
+        # of the first traceback design, e.g. `git archive 07a10f2`) its
+        # csrc/traceback.cu too, on the menu's cells and the sweep's
+        # chunks, in turns, then warm scans of phase 3's DB and reads by
+        # that checkout's engine and by this one's, in turns
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name, power limit and maximum SM clock) and
@@ -21,12 +29,15 @@ Phases, each fatal on failure:
      f64 one above.  Tolerance: 1e-4 + 1e-6 * |plain| (max), 1e-3 +
      1e-5 * |plain| (logsumexp).  Then pass 2's kernel (csrc/
      traceback.cu) against its plain version trace_dp on the card: K 8,
-     40, 129, 385, 1025 and 4096 with reads of 0-600 nt and one of 1200
-     nt, ragged cores, dead DD links and a tie-forcing profile; all four
-     flag pairs at K 40; base-5 and base-6 reads; 1 hit and 128 hits.
+     40, 129, 385, 600, 1025, 2000, 2049 and 4096 (every row of the plan
+     table: a CTA per hit, a cluster of 2 or 4 CTAs per hit) with reads of
+     0-600 nt and one of 1200 nt, ragged cores, dead DD links and a
+     tie-forcing profile; all four flag pairs at K 40; base-5 and base-6
+     reads; 1 hit and 128 hits.
      Every backpointer array must equal trace_dp's on the rows a walk
      reads (VT within the Viterbi tolerance; it has been 0) and the walked
-     paths be identical;
+     paths be identical; each cell prints its plan, kernel ms, us per
+     position and share of its bound;
   3. the main path at a Pfam-shaped size: press a synthetic 1024-profile
      .hmm, then scan one mixed read set (256 ACGT reads, 24 reads with N,
      8 with N and R) under Viterbi and under --forward, each with the
@@ -35,11 +46,15 @@ Phases, each fatal on failure:
      the semiring's kernel must have been launched once per block and
      read class, every pass-1 cell of every class must equal the plain
      version, and no jax may be loaded.  Pass 2 must have launched the
-     traceback kernel once per chunk of each (width, class) group and
-     never called trace_dp; replayed chunk by chunk (host block build,
-     upload, kernel, D2H copy, walk, codec, each timed) every array
-     equals trace_dp's on the card and every hit's path and match string
-     equal the replay's.  Kernel-vs-plain times per class,
+     traceback kernel once per chunk of each (width, class) group, waited
+     on the card once (viterbi_trace.trace_scan) and never called
+     trace_dp; replayed chunk by chunk (host block build, upload, kernel,
+     D2H copy, walk, codec, each timed, and the kernel's share of them)
+     every array equals trace_dp's on the card and every hit's path and
+     match string equal the replay's; then pass 2 runs once more as the
+     scan runs it, trace_scan split into its parts (block build, pack,
+     enqueue, the wait for the kernels, the copy, the walks) beside the
+     codec.  Kernel-vs-plain times per class,
      warm scan seconds and GCUPS are timed with CUDA events, and each
      kernel's bound is computed from the same inputs: the larger of its
      bytes over 3.35 TB/s and its operations over the card's rates (see
@@ -51,15 +66,15 @@ Phases, each fatal on failure:
      pass-1 cell of every class must equal the unsharded engine's bit for
      bit, the hits and best-hit winners must be identical, the kernel
      must have been launched tiles x blocks x classes times, and pass 2
-     the traceback kernel once per chunk;
+     the traceback kernel once per chunk, with one host wait;
   5. the scheduler daemon, Server(device="cuda"), against the port's
      FakeScheduler on localhost: a press job of the same .hmm (the
      uploaded .dtp must equal the CLI's byte for byte), a scan job of the
      288 reads and a DCP_BEST_HIT=1 scan job, whose products must equal
      phase 3's in-process hits (logliks within 1e-4 + 1e-6 * |x|) and
      best hits; every planted read must hit, the kernel must have been
-     launched, and the scan job's pass 2 the traceback kernel.  A failed
-     job is fatal;
+     launched, and the scan job's pass 2 the traceback kernel, with one
+     host wait (none in the best-hit job).  A failed job is fatal;
   6. the multi-process scan (parallel/distributed.py): two worker
      processes (this script with --dist-worker) join a gloo process group
      on a free localhost port (DCP_COORDINATOR, DCP_NUM_PROCS=2,
@@ -173,12 +188,15 @@ MAX_OPS = 18 + 15 + 1
 # 2 adds for VE, 3 maxima for the values' scales) and 5 exponentials of
 # the gathered match entries on the MUFU pipe
 FWD_FMA, FWD_OTHER, FWD_MUFU = 15, 18, 5
-# pass 2's kernel (csrc/traceback.cu, ops/viterbi_trace.trace_kernel)
+# pass 2's kernel (csrc/traceback.cu, ops/viterbi_trace.launch_trace)
 TRACE_NAME = "traceback"
 TRACE_SOURCE = "deciphon_tpu_torch/csrc/traceback.cu"
 TRACE_REPLACES = "deciphon_tpu/ops/viterbi_trace.py:266"
-# its menu (phase 2): widths, with reads of MENU_LENS and one long read
-TRACE_MENU_K = (8, 40, 129, 385, 1025, 4096)
+# its menu (phase 2): widths, with reads of MENU_LENS and one long read;
+# every row of viterbi_trace.TRACE_TABLE: CTA plans of 1 and 2 nodes a
+# thread (K 8, 40, 129, 385; 600), clusters of 2 CTAs of 2 and 4 nodes a
+# thread (1025; 2000) and of 4 CTAs of 2 (2049, 4096)
+TRACE_MENU_K = (8, 40, 129, 385, 600, 1025, 2000, 2049, 4096)
 TRACE_LONG_NT = 1200
 TRACE_H128_K = 129  # the cell of a full chunk: TRACE_BATCH hits
 TRACE_H1_K = 385  # the cell of one hit
@@ -443,25 +461,31 @@ def trace_cells():
     return cells
 
 
-def phase_trace_menu(dev) -> float:
+def phase_trace_menu(dev, clock: float) -> float:
     """The traceback kernel against trace_dp on the card over the menu
     of ``trace_cells``: every backpointer array equal on the rows a walk
     reads (rows < seq_len), VT within the Viterbi tolerance, walked paths
-    identical.  Returns the worst |VT - plain VT|."""
+    identical; one timing line per cell (kernel ms, the min of 3 CUDA-
+    event runs, us per position, share of the bound).  Every (kind, npt)
+    of the plan table must have been launched.  Returns the worst
+    |VT - plain VT|."""
     import torch
 
     from deciphon_tpu_torch.ops import viterbi_trace as vtr
 
-    worst, ncells, nwalks = 0.0, 0, 0
+    worst, ncells, nwalks, kernels = 0.0, 0, 0, set()
     for label, K, hits, codes, flags in trace_cells():
         profs = [p for p, _ in hits]
         encs = [encode(r, codes) for _, r in hits]
+        plan = vtr.trace_plan(K)
         for H, block, eidx, lens in vtr.chunks(profs, encs, K,
                                                codes or None):
             for mh, h3 in flags:
                 pk = vtr.pack_trace(block, eidx, lens, mh, h3, dev)
                 out = []
-                k_ms = timed_ms(lambda: out.append(vtr.launch_trace(pk)))
+                k_ms = timed_ms(lambda: out.append(vtr.launch_trace(pk)),
+                                reps=3)
+                kernels.add((plan.kind, plan.npt))
                 ys = out[0].host()
                 t0 = time.perf_counter()
                 _, pys = vtr.trace_dp(block, eidx, lens, mh, h3, dev)
@@ -471,20 +495,197 @@ def phase_trace_menu(dev) -> float:
                 d = compare_ys(ys, pys, lens, what)
                 walks = compare_paths(ys, pys, lens, H, K, what)
                 same = all(np.array_equal(ys[k], pys[k]) for k in vtr.YS)
+                Lmax = pk.eidx.shape[1]
+                b_ms, b_by = bound(*trace_work(H, block, eidx, lens),
+                                   "trace", clock)
                 print(f"{what}: H={H} (padded {len(lens)}) ntab="
-                      f"{pk.fmT.shape[1]} Lmax={pk.eidx.shape[1]} plan "
-                      f"{vtr.trace_plan(K)}: codes equal, VT max|d| "
+                      f"{pk.fmT.shape[1]} Lmax={Lmax} plan "
+                      f"{trace_plan_str(plan)}: codes equal, VT max|d| "
                       f"{d:.3g}, {walks} paths identical; all rows equal "
                       f"(past seq_len too): {same}; kernel {k_ms:.3f} ms "
-                      f"(CUDA events) vs trace_dp {p_s:.3f} s (host clock)")
+                      f"(CUDA events, min of 3), "
+                      f"{1e3 * k_ms / max(Lmax, 1):.3f} us a position, "
+                      f"{100 * b_ms / k_ms:.3f}% of its bound ({b_ms:.5f} "
+                      f"ms by {b_by}) vs trace_dp {p_s:.3f} s (host clock)")
                 worst = max(worst, d)
                 ncells += 1
                 nwalks += walks
                 del pk, out
         torch.cuda.empty_cache()
+    if kernels != set(vtr.TRACE_KERNELS):
+        raise SystemExit(f"trace menu: {sorted(kernels)} launched, want "
+                         f"every (kind, npt) of the plan table "
+                         f"{sorted(vtr.TRACE_KERNELS)}")
     print(f"trace menu: all {ncells} cells equal trace_dp, {nwalks} paths "
-          f"identical, VT max|d| {worst:.3g}")
+          f"identical, VT max|d| {worst:.3g}; plans launched: "
+          f"{', '.join(f'{k}/npt{n}' for k, n in sorted(kernels))}")
     return worst
+
+
+def trace_plan_str(p) -> str:
+    """A traceback launch plan in a few characters: kind, nodes a
+    thread, warps per CTA x CTAs per hit."""
+    return f"{p.kind}/npt{p.npt}/w{p.warps}x{p.cluster}"
+
+
+# the traceback plans' sweep (--trace-sweep): per width, hits and read
+# length of a chunk, the (kind, nodes a thread) alternatives of
+# viterbi_trace._plan to time against trace_plan's: at K 64-160 the main
+# path's shapes (1-4 hits of 150-500 nt, and a full chunk of 128 hits),
+# then each row's boundaries and the widths between the cluster rows
+TRACE_SWEEP = (
+    (64, 4, 400, (("cta", 2),)),
+    (160, 4, 400, (("cta", 2),)),
+    (129, 128, 400, (("cta", 2),)),
+    (384, 4, 400, (("cta", 2),)),
+    (1024, 4, 1200, (("cluster", 2),)),
+    (1025, 4, 1200, (("cluster", 4),)),
+    (1280, 4, 1200, (("cluster", 4),)),
+    (1536, 4, 1200, (("cluster", 4),)),
+    (1792, 4, 1200, (("cluster", 4),)),
+    (2048, 4, 1200, (("cluster", 2),)),
+    (4096, 4, 1200, (("cluster", 4),)),
+)
+
+
+def first_design(parent: str):
+    """(launch, plan) of the first traceback design, built from the
+    csrc/traceback.cu of ``parent`` (an unpacked checkout of the commit
+    that holds it): one CTA per hit, 1-8 nodes a thread, rings in shared
+    memory or, above K ~3400, in device-memory scratch."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    from deciphon_tpu_torch.ops import _build
+    from deciphon_tpu_torch.ops import viterbi_trace as vtr
+
+    out = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    so = os.path.join(out, "baseline.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
+                    os.path.join(parent, TRACE_SOURCE)],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(so).dcp_traceback
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p] * 5 + [f, f] + [p] * 11 + [i] * 8 + [p]
+    fn.restype = i
+
+    def plan(K):
+        npt = next(n for n in (1, 2, 4, 8) if K <= n * 512)
+        ring = 4 * (15 * (K + 1) + 2 * (K + 2)) <= vtr.SMEM_MAX
+        smem = 4 * ((15 * (K + 1) if ring else 0) + 2 * (K + 2))
+        return npt, 32 * -(-K // (32 * npt)), smem, int(ring)
+
+    def launch(pk):
+        H, ntab, K = pk.fmT.shape
+        Lmax = pk.eidx.shape[1]
+        views, nbytes = vtr._layout(Lmax, H, K)
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=pk.fmT.device)
+        npt, threads, smem, ring = plan(K)
+        scratch = (None if ring else torch.empty(
+            (H, 15, K + 1), dtype=torch.float32, device=pk.fmT.device))
+        rc = fn(pk.fmT.data_ptr(), pk.fin.data_ptr(), pk.planes.data_ptr(),
+                pk.eidx.data_ptr(), pk.sp.data_ptr(), ctypes.c_float(pk.EJ),
+                ctypes.c_float(pk.EC),
+                0 if scratch is None else scratch.data_ptr(),
+                *(buf.data_ptr() + views[k][0] for k in vtr.YS), H, K, ntab,
+                Lmax, npt, threads, smem, ring,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f"baseline launch failed: "
+                             f"{_build.error_string(rc)}")
+        return vtr.TraceOut(buf, views)
+
+    return launch, plan
+
+
+def sweep_chunk(K: int, H: int, nt: int, rng):
+    """A chunk of H hits at width K: ragged cores up to K, reads of nt."""
+    from deciphon_tpu_torch.models.profile import sample_profile
+    from deciphon_tpu_torch.ops import viterbi_trace as vtr
+
+    profs = [sample_profile(700 * K + j, int(k)) for j, k in enumerate(
+        rng.integers(max(2, K // 2), K + 1, H))]
+    encs = [encode("".join(rng.choice(list("ACGT"), nt)), ())
+            for _ in range(H)]
+    ((_, block, eidx, lens),) = vtr.chunks(profs, encs, K)
+    return block, eidx, lens
+
+
+def phase_trace_sweep(dev, clock: float, parent: str | None) -> None:
+    """The traceback plans on the card: per TRACE_SWEEP chunk trace_plan's
+    plan and its alternatives, each held equal to the plan's arrays and
+    timed (CUDA events, min of 3, in turns plan / alternative /
+    alternative / plan); with ``parent`` the first design on the same
+    chunks and on the pass-2 menu's cells (one flag pair), in turns
+    first design / this / this / first design, its arrays equal too."""
+    from deciphon_tpu_torch.ops import viterbi_trace as vtr
+
+    base = first_design(parent) if parent else None
+    rng = np.random.default_rng(17)
+
+    def same(a, b, what):
+        for k in vtr.YS:
+            if not np.array_equal(a[k], b[k]):
+                raise SystemExit(f"{what}: {k} differs")
+
+    def turns(f, g):
+        """(f ms, g ms): min of 3 CUDA-event runs each, in turns."""
+        tf, tg = [], []
+        for fn, acc in ((f, tf), (g, tg), (g, tg), (f, tf), (f, tf),
+                        (g, tg)):
+            acc.append(timed_ms(fn))
+        return min(tf), min(tg)
+
+    def pack(block, eidx, lens):
+        return vtr.pack_trace(block, eidx, lens, True, False, dev)
+
+    for K, H, nt, alts in TRACE_SWEEP:
+        block, eidx, lens = sweep_chunk(K, H, nt, rng)
+        pk = pack(block, eidx, lens)
+        b_ms, b_by = bound(*trace_work(H, block, eidx, lens), "trace",
+                           clock)
+        plan = vtr.trace_plan(K)
+        ref = vtr.launch_trace(pk).host()
+        line = [f"sweep K={K} H={H} Lmax={nt}: bound {b_ms:.5f} ms by "
+                f"{b_by}"]
+        for kind, npt in alts:
+            alt = vtr._plan(kind, npt, K)
+            same(vtr._launch(pk, None, alt).host(), ref,
+                 f"sweep K={K} {trace_plan_str(alt)}")
+            d_ms, a_ms = turns(lambda: vtr.launch_trace(pk),
+                               lambda: vtr._launch(pk, None, alt))
+            line.append(f"{trace_plan_str(plan)} {d_ms:.3f} ms vs "
+                        f"{trace_plan_str(alt)} {a_ms:.3f} ms")
+        if base:
+            same(base[0](pk).host(), ref, f"sweep K={K} first design")
+            f_ms, d_ms = turns(lambda: base[0](pk),
+                               lambda: vtr.launch_trace(pk))
+            line.append(f"first design {f_ms:.3f} ms vs "
+                        f"{trace_plan_str(plan)} {d_ms:.3f} ms "
+                        f"({f_ms / d_ms:.1f}x; {100 * b_ms / d_ms:.3f}% of "
+                        f"the bound)")
+        print("; ".join(line))
+    if not base:
+        return
+    for label, K, hits, codes, flags in trace_cells():
+        profs = [p for p, _ in hits]
+        encs = [encode(r, codes) for _, r in hits]
+        for H, block, eidx, lens in vtr.chunks(profs, encs, K,
+                                               codes or None):
+            pk = pack(block, eidx, lens)
+            same(base[0](pk).host(), vtr.launch_trace(pk).host(),
+                 f"menu {label} first design")
+            f_ms, d_ms = turns(lambda: base[0](pk),
+                               lambda: vtr.launch_trace(pk))
+            b_ms, _ = bound(*trace_work(H, block, eidx, lens), "trace",
+                            clock)
+            print(f"first design vs this, menu {label} H={H} Lmax="
+                  f"{pk.eidx.shape[1]}: {f_ms:.3f} ms vs "
+                  f"{trace_plan_str(vtr.trace_plan(K))} {d_ms:.3f} ms "
+                  f"({f_ms / d_ms:.1f}x), {1e3 * d_ms / pk.eidx.shape[1]:.3f}"
+                  f" us a position, {100 * b_ms / d_ms:.3f}% of the bound")
 
 
 def plan_str(p) -> str:
@@ -610,6 +811,14 @@ def reset_launches() -> None:
     for k in vc.LAUNCHES:
         vc.LAUNCHES[k] = 0
     vtr.LAUNCHES[TRACE_NAME] = 0
+    vtr.HOST_WAITS["pass2"] = 0
+
+
+def trace_waits() -> int:
+    """Host waits of pass 2 since reset_launches (one per scan)."""
+    from deciphon_tpu_torch.ops import viterbi_trace as vtr
+
+    return vtr.HOST_WAITS["pass2"]
 
 
 def trace_launches() -> int:
@@ -748,22 +957,104 @@ def trace_chunks(engine) -> int:
 
 
 def check_trace_launches(engine, plain_calls: int, what: str) -> int:
-    """The scan's pass 2 ran the kernel once per chunk and never
-    trace_dp; returns its launches."""
+    """The scan's pass 2 ran the kernel once per chunk, queued every
+    chunk before one host wait, and never called trace_dp; returns its
+    launches."""
     n, want = trace_launches(), trace_chunks(engine)
-    if n != want or not n or plain_calls:
+    if n != want or not n or plain_calls or trace_waits() != 1:
         raise SystemExit(f"{what}: {n} {TRACE_NAME} launches, want {want} "
-                         f"(> 0), and {plain_calls} trace_dp calls (want 0)")
+                         f"(> 0), {trace_waits()} host waits (want 1) and "
+                         f"{plain_calls} trace_dp calls (want 0)")
     return n
+
+
+def trace_scan_parts(engine, seqs) -> dict:
+    """Host seconds of pass 2 over the engine's last survivors, run as
+    the scan runs it (ScanEngine._traceback: trace_scan, then the codec),
+    split into trace_scan's parts: block build (chunks), pack and upload
+    (pack_trace), enqueue (launch_trace), the wait for the kernels still
+    running after the last launch and the one copy back (_to_host), the
+    walks; the rest of trace_scan (layout, streams, results), the codec
+    and the whole."""
+    import torch
+
+    from deciphon_tpu_torch.ops import viterbi_trace as vtr
+
+    t = dict.fromkeys(("build", "pack", "enqueue", "wait", "copy", "walk",
+                       "trace_scan"), 0.0)
+    real = {n: getattr(vtr, n) for n in (
+        "chunks", "pack_trace", "launch_trace", "_to_host", "walk",
+        "trace_scan")}
+
+    def timed(name):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*a, **k)
+            finally:
+                t[key[name]] += time.perf_counter() - t0
+        return run
+
+    def chunks(*a, **k):
+        it = real["chunks"](*a, **k)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                c = next(it)
+            except StopIteration:
+                return
+            finally:
+                t["build"] += time.perf_counter() - t0
+            yield c
+
+    def to_host(*a, **k):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        raw = real["_to_host"](*a, **k)
+        t["wait"] += t1 - t0
+        t["copy"] += time.perf_counter() - t1
+        return raw
+
+    key = dict(pack_trace="pack", launch_trace="enqueue", walk="walk",
+               trace_scan="trace_scan")
+    encoded, _ = engine.encode(seqs)
+    waits = vtr.HOST_WAITS["pass2"]
+    try:
+        vtr.chunks, vtr._to_host = chunks, to_host
+        for n in key:
+            setattr(vtr, n, timed(n))
+        t0 = time.perf_counter()
+        engine._traceback(seqs, encoded, engine.last_survivors)
+        t["pass2"] = time.perf_counter() - t0
+    finally:
+        for n, f in real.items():
+            setattr(vtr, n, f)
+    t["waits"] = vtr.HOST_WAITS["pass2"] - waits
+    t["codec"] = t["pass2"] - t["trace_scan"]
+    t["other"] = t["trace_scan"] - sum(
+        t[k] for k in ("build", "pack", "enqueue", "wait", "copy", "walk"))
+    return t
+
+
+def parts_line(t: dict) -> str:
+    """``trace_scan_parts``'s seconds on one line."""
+    return (f"{t['pass2']:.4f} s (host clock): trace_scan "
+            f"{t['trace_scan']:.4f} s = block build {t['build']:.4f} + pack "
+            f"and upload {t['pack']:.4f} + enqueue {t['enqueue']:.4f} + "
+            f"wait for the kernels {t['wait']:.4f} + copy {t['copy']:.4f} + "
+            f"walks {t['walk']:.4f} + other {t['other']:.4f} s "
+            f"({t['waits']} host wait), codec {t['codec']:.4f} s")
 
 
 def pass2_replay(engine, seqs, hits, dev, clock, what: str) -> dict:
     """Pass 2 of the engine's last scan, replayed chunk by chunk through
-    the pieces of viterbi_alt_batch, each timed: host block build,
-    upload (pack_trace), kernel (CUDA events), D2H copy, walk, codec;
-    then trace_dp on the card on the same chunk.  Every array must equal
+    the pieces of trace_scan, each timed: host block build, upload
+    (pack_trace), kernel (CUDA events), D2H copy, walk, codec; then
+    trace_dp on the card on the same chunk.  Every array must equal
     trace_dp's, the paths be identical, and each survivor's path and
-    match string equal the scan's hit."""
+    match string equal the scan's hit.  Then pass 2 once more as the
+    scan runs it, split by ``trace_scan_parts``."""
     import torch
 
     from deciphon_tpu_torch.models import codec
@@ -796,8 +1087,8 @@ def pass2_replay(engine, seqs, hits, dev, clock, what: str) -> dict:
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             out = []
-            rec["kernel_ms"] += timed_ms(
-                lambda: out.append(vtr.launch_trace(pk)))
+            k_ms = timed_ms(lambda: out.append(vtr.launch_trace(pk)))
+            rec["kernel_ms"] += k_ms
             t3 = time.perf_counter()
             ys = out[0].host()
             t4 = time.perf_counter()
@@ -836,7 +1127,8 @@ def pass2_replay(engine, seqs, hits, dev, clock, what: str) -> dict:
             rec["hits"] += H
             rec["block_bytes"] = max(rec["block_bytes"], block.fm.nbytes)
             lo += H
-            del pk, out
+            del out, pk
+    rec["scan_parts"] = trace_scan_parts(engine, seqs)
     rec.update(t)
     rec["plain_ms"] = 1e3 * t["plain"]
     b_ms, b_by = bound(rec["nbytes"], rec["cells"], "trace", clock)
@@ -845,31 +1137,32 @@ def pass2_replay(engine, seqs, hits, dev, clock, what: str) -> dict:
     plain_path = t["build"] + t["plain"] + t["walk"] + t["codec"]
     print(f"{what} pass 2 replay: {rec['hits']} hits in {rec['chunks']} "
           f"chunks (width/class:hits {' '.join(rec['groups'])}; largest "
-          f"host match table {rec['block_bytes']} B), every array equal trace_dp's on the card (VT max|d| "
+          f"host match table {rec['block_bytes']} B), every array equal "
+          f"trace_dp's on the card (VT max|d| "
           f"{rec['worst']:.3g}), paths and match strings equal the scan's; "
           f"host block build {t['build']:.4f} s, upload {t['upload']:.4f} "
           f"s, kernel {rec['kernel_ms']:.3f} ms (CUDA events), D2H "
           f"{t['d2h']:.4f} s, walk {t['walk']:.4f} s, codec "
-          f"{t['codec']:.4f} s: {kernel_path:.4f} s (host clock); with "
+          f"{t['codec']:.4f} s: {kernel_path:.4f} s (host clock), the "
+          f"kernel {100 * 1e-3 * rec['kernel_ms'] / kernel_path:.2f}% of "
+          f"it, the host block build {100 * t['build'] / kernel_path:.1f}"
+          f"%, the codec {100 * t['codec'] / kernel_path:.1f}%, the walk "
+          f"{100 * t['walk'] / kernel_path:.2f}%; with "
           f"trace_dp on the card instead ({t['plain']:.4f} s): "
           f"{plain_path:.4f} s; kernel bound {b_ms:.4f} ms by {b_by} "
           f"({rec['nbytes']} B, {rec['cells']} node-positions), kernel at "
           f"{100 * b_ms / max(rec['kernel_ms'], 1e-9):.2f}% of it")
+    print(f"{what} pass 2 as the scan runs it: "
+          f"{parts_line(rec['scan_parts'])}")
     return rec
 
 
-def phase_main_path(dev, workdir: str, clock: float):
-    """(per semiring: launches, max_abs_err, ms, plain_ms, bound_ms,
-    bound_by of the main path; the context phases 4 and 5 compare
-    with)."""
-    import torch
-
+def main_path_inputs(workdir: str):
+    """(db, .hmm, .dtp, reads, planted, fasta) of phase 3: the
+    Pfam-shaped DB of NPROF profiles, pressed by the CLI, and the mixed
+    reads (``mixed_reads``) written to a FASTA."""
     from deciphon_tpu_torch.db.format import TensorDB
     from deciphon_tpu_torch.models.h3writer import random_h3, write_h3
-    from deciphon_tpu_torch.ops import viterbi_cuda as vc
-    from deciphon_tpu_torch.ops.scan_engine import (
-        ScanEngine, ScanParams, SeqRecord,
-    )
 
     rng = np.random.default_rng(42)
     sizes = ragged_core_sizes(rng)
@@ -885,11 +1178,98 @@ def phase_main_path(dev, workdir: str, clock: float):
     cli("press", hmm, "-o", dtp)
     db = TensorDB.load(dtp)
     assert db.nprofiles == NPROF
-
     reads, planted = mixed_reads(rng, db)
     fasta = os.path.join(workdir, "reads.fa")
     with open(fasta, "w") as fp:
         fp.writelines(f">r{i + 1}\n{r}\n" for i, r in enumerate(reads))
+    return db, hmm, dtp, reads, planted, fasta
+
+
+def warm_worker(tree: str, dtp: str, fasta: str) -> int:
+    """One turn of ``phase_warm_compare`` (--warm-worker): the engine of
+    the checkout ``tree`` on the card, per algorithm a cold scan of the
+    FASTA's reads (builds, tables) and 3 warm ones; prints one JSON line
+    of each warm scan's seconds and pass 2 (host clock, the card synced
+    around each scan) and, where ``tree`` has trace_scan, the parts of
+    one more pass 2 (``trace_scan_parts``)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    import deciphon_tpu_torch
+    from deciphon_tpu_torch.db.format import TensorDB
+    from deciphon_tpu_torch.ops import viterbi_trace as vtr
+    from deciphon_tpu_torch.ops.scan_engine import (
+        ScanEngine, ScanParams, SeqRecord,
+    )
+
+    if not deciphon_tpu_torch.__file__.startswith(os.path.abspath(tree)):
+        raise SystemExit(
+            f"warm worker: imported {deciphon_tpu_torch.__file__}")
+    lines = open(fasta).read().split()
+    seqs = [SeqRecord(i + 1, n[1:], r)
+            for i, (n, r) in enumerate(zip(lines[::2], lines[1::2]))]
+    db = TensorDB.load(dtp)
+    out = {}
+    for algo in ALGO.values():
+        engine = ScanEngine(db, ScanParams(algo=algo),
+                            device=torch.device("cuda", 0))
+        engine.scan(seqs)
+        rec = dict(scan_s=[], pass2_s=[])
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.scan(seqs)
+            torch.cuda.synchronize()
+            rec["scan_s"].append(time.perf_counter() - t0)
+            rec["pass2_s"].append(engine.last_timings["pass2"])
+        rec["survivors"] = len(engine.last_survivors)
+        if hasattr(vtr, "trace_scan"):
+            rec["parts"] = trace_scan_parts(engine, seqs)
+        out[algo] = rec
+        del engine
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
+
+
+def phase_warm_compare(workdir: str, parent: str) -> None:
+    """Warm scans of phase 3's DB and reads by this checkout's engine and
+    by ``parent``'s, each turn a worker process (``warm_worker``), in
+    turns parent / this / this / parent: per turn and algorithm the warm
+    scans' and their pass 2's seconds (host clock), and this checkout's
+    pass 2 split into trace_scan's parts."""
+    _, _, dtp, _, _, fasta = main_path_inputs(workdir)
+    here = os.path.dirname(os.path.abspath(__file__))
+    for name, tree in (("parent", parent), ("this", here), ("this", here),
+                       ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--warm-worker",
+             tree, dtp, fasta], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"warm worker {name} failed "
+                             f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        for algo, r in rec.items():
+            print(f"warm compare {name} {algo}: {r['survivors']} survivors; "
+                  f"warm scans {', '.join(f'{x:.4f}' for x in r['scan_s'])}"
+                  f" s, their pass 2 "
+                  f"{', '.join(f'{x:.4f}' for x in r['pass2_s'])} s (host "
+                  f"clock)" + (f"; pass 2 once more: {parts_line(r['parts'])}"
+                               if "parts" in r else ""))
+
+
+def phase_main_path(dev, workdir: str, clock: float):
+    """(per semiring: launches, max_abs_err, ms, plain_ms, bound_ms,
+    bound_by of the main path; the context phases 4 and 5 compare
+    with)."""
+    import torch
+
+    from deciphon_tpu_torch.ops import viterbi_cuda as vc
+    from deciphon_tpu_torch.ops.scan_engine import (
+        ScanEngine, ScanParams, SeqRecord,
+    )
+
+    db, hmm, dtp, reads, planted, fasta = main_path_inputs(workdir)
     seqs = [SeqRecord(i + 1, f"r{i + 1}", r) for i, r in enumerate(reads)]
     nodes = int(db.core_sizes.sum())
     cells = 3 * sum(map(len, reads)) * nodes
@@ -1205,9 +1585,12 @@ def phase_daemon(ctx, workdir: str) -> dict:
                 raise SystemExit(f"daemon {mode}: no kernel launch")
             # a scan job traces its survivors on the kernel; a best-hit
             # job has no pass 2
-            if (tb == 0) == (mode == "scan") or plain_calls[0]:
+            waits = trace_waits()
+            if ((tb == 0) == (mode == "scan") or plain_calls[0]
+                    or waits != (mode == "scan")):
                 raise SystemExit(f"daemon {mode}: {tb} {TRACE_NAME} "
-                                 f"launches, {plain_calls[0]} trace_dp calls")
+                                 f"launches, {waits} host waits, "
+                                 f"{plain_calls[0]} trace_dp calls")
             # the scheduler numbers this scan's reads in input order
             index = {q.id: i for i, q in enumerate(fake.seqs[scan.id])}
             rows_of[mode] = [
@@ -1530,11 +1913,15 @@ def phase_trace(ctx, dev, workdir: str) -> tuple[int, int, str]:
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--dist-worker"] and len(argv) == 3:
         return dist_worker(*argv[1:])  # one rank of phase 6
+    if argv[:1] == ["--warm-worker"] and len(argv) == 4:
+        return warm_worker(*argv[1:])  # one turn of the warm compare
     import torch
 
     menu_only = argv == ["--menu-only"]
-    if argv and not menu_only:
-        print("usage: chip_smoke.py [--menu-only]", file=sys.stderr)
+    sweep = argv[:1] == ["--trace-sweep"] and len(argv) <= 2
+    if argv and not (menu_only or sweep):
+        print("usage: chip_smoke.py [--menu-only | --trace-sweep "
+              "[PARENT_TREE]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1554,9 +1941,25 @@ def main(argv: list[str]) -> int:
         if any(w in line for w in ("Compiling", "registers", "spill",
                                    "error")):
             print(f"  ptxas: {line.strip()}")
+    if sweep:  # phase 1, the pass-2 menu and the plans' sweep
+        parent = argv[1] if len(argv) == 2 else None
+        phase_trace_menu(dev, clock)
+        phase_trace_sweep(dev, clock, parent)
+        print(f"trace sweep done at {time.perf_counter() - t_start:.1f} s")
+        if parent:
+            workdir = os.path.join(os.path.dirname(os.path.abspath(
+                __file__)), "build", "warm_compare")
+            os.makedirs(workdir, exist_ok=True)
+            try:
+                phase_warm_compare(workdir, parent)
+            finally:
+                shutil.rmtree(workdir, ignore_errors=True)
+            print(f"warm compare done at "
+                  f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     menu_err = phase_kernel_menu(dev)
     print(f"menu done at {time.perf_counter() - t_start:.1f} s")
-    menu_err[TRACE_NAME] = phase_trace_menu(dev)
+    menu_err[TRACE_NAME] = phase_trace_menu(dev, clock)
     print(f"trace menu done at {time.perf_counter() - t_start:.1f} s")
     if menu_only:  # phases 1-2: the build and the menu, then stop
         return 0

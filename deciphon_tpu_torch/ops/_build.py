@@ -110,11 +110,11 @@ def _library() -> SimpleNamespace:
     lib.dcp_viterbi_max.argtypes = common + [i] * 6 + [p]
     lib.dcp_viterbi_lse.argtypes = common + [p]
     # the traceback kernel (traceback.cu): (fmT, fin, planes, eidx, sp,
-    #  t_EJ, t_EC, scratch, bpM, bpI, dD, bpE, bpN, bpJ, bpC, bpB, bpT,
-    #  VT, H, K, ntab, Lmax, npt, threads, smem, ring_in_smem, stream);
-    #  viterbi_trace.launch_trace
+    #  t_EJ, t_EC, bpM, bpI, dD, bpE, bpN, bpJ, bpC, bpB, bpT, VT, H, K,
+    #  ntab, Lmax, and its plan: kind, npt, warps, cluster, threads,
+    #  smem; stream); viterbi_trace.launch_trace
     lib.dcp_traceback.argtypes = (
-        [p] * 5 + [f, f] + [p] * 11 + [i] * 8 + [p])
+        [p] * 5 + [f, f] + [p] * 10 + [i] * 10 + [p])
     for fn in (lib.dcp_viterbi_max, lib.dcp_viterbi_lse, lib.dcp_traceback):
         fn.restype = i
     lib.dcp_cuda_error_string.argtypes = [i]

@@ -14,8 +14,9 @@ passes:
     sync per device; then the LRT gate (xmath.h:236-247).
   pass 2 (survivors only): backpointer Viterbi DP + host walk
     (ops/viterbi_trace.py; the DP is the traceback kernel on a card,
-    one launch per chunk of a (width, read class) group, and plain torch
-    on the CPU), decoded into match strings by the codec.
+    one launch per chunk of a (width, read class) group, all queued
+    before one host wait, and plain torch on the CPU), decoded into
+    match strings by the codec.
     Under forward the hits carry forward logliks and the Viterbi path,
     as in the reference (scan_engine.py:58-63).
 
@@ -438,20 +439,23 @@ class ScanEngine:
         return groups
 
     def _traceback(self, seqs, encoded, survivors) -> list[Hit]:
-        """Pass 2, batched by (padded width, read class): one DP per
-        group, in chunks of TRACE_BATCH hits (on a card one launch of the
-        traceback kernel per chunk)."""
+        """Pass 2, batched by (padded width, read class) and queued as one
+        scan (viterbi_trace.trace_scan): on a card one launch of the
+        traceback kernel per chunk of TRACE_BATCH hits of a group, every
+        chunk queued before the host waits once."""
+        groups = list(self.trace_groups(survivors).items())
+        profs = [[self.db.profile(gi) for _, gi, *_ in items]
+                 for _, items in groups]
+        results = vtr.trace_scan(
+            [(ps, [encoded[si] for si, *_ in items], kpad, codes)
+             for ((kpad, codes), items), ps in zip(groups, profs)],
+            multi_hits=self.params.multi_hits,
+            hmmer3_compat=self.params.hmmer3_compat, device=self.device,
+        )
         hits: list[Hit] = []
-        for (kpad, codes), items in self.trace_groups(survivors).items():
-            profs = [self.db.profile(gi) for _, gi, *_ in items]
-            results = vtr.viterbi_alt_batch(
-                profs, [encoded[si] for si, *_ in items],
-                multi_hits=self.params.multi_hits,
-                hmmer3_compat=self.params.hmmer3_compat,
-                kpad=kpad, device=self.device, codes=codes,
-            )
+        for (_, items), ps, res_g in zip(groups, profs, results):
             for (si, gi, _, alt, null, lrt), prof, res in zip(
-                items, profs, results
+                items, ps, res_g
             ):
                 rec = seqs[si]
                 hits.append(Hit(

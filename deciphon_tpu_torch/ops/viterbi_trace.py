@@ -4,9 +4,11 @@ The counterpart of deciphon_tpu/ops/viterbi_trace.py.  Only LRT
 survivors reach it: one DP over a stack of (profile, read) hits with
 per-position argmax codes, then an O(path) walk of the codes on the
 host.  On the card the DP is one launch of the Hopper kernel
-csrc/traceback.cu per chunk of hits (``trace_kernel``, the counterpart
-of the jitted ``_trace_scan_batch`` :266); ``trace_dp`` is its plain
-torch version, which the CPU runs.
+csrc/traceback.cu per chunk of hits (``launch_trace``, the counterpart
+of the jitted ``_trace_scan_batch`` :266; its launch shape per width is
+``trace_plan``'s); ``trace_dp`` is its plain torch version, which the
+CPU runs.  A scan's pass 2 (``trace_scan``) queues every chunk of every
+group before the host waits, once per QUEUE_BYTES of queued chunks.
 
 Tie-breaking replicates the reference exactly: candidates flatten in
 (fragment length ascending, origin ascending) order and the first maximum
@@ -18,6 +20,7 @@ identical, not merely equal in score.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import NamedTuple
 
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from deciphon_tpu_torch.models import state as st
+from deciphon_tpu_torch.models.frame import frag_layout
 from deciphon_tpu_torch.ops import viterbi_ref as vr
 from deciphon_tpu_torch.ops.emissions import fragment_indices
 from deciphon_tpu_torch.ops.viterbi_torch import (
@@ -42,13 +46,20 @@ YS = ("bpM", "bpI", "dD", "bpE", "bpN", "bpJ", "bpC", "bpB", "bpT", "VT")
 # planes of the kernel's [H, 9, K] tensor (csrc/traceback.cu P_*)
 TRACE_PLANES = ("entry", "mm_in", "im_in", "dm_in", "mi", "ii", "md_next",
                 "cdd_next", "cdd")
-# launches of csrc/traceback.cu made by trace_kernel (callers that must
+# launches of csrc/traceback.cu made by launch_trace (callers that must
 # show a run went through the kernel set it to 0 before and read it after)
 LAUNCHES = {"traceback": 0}
-MAX_THREADS = 512  # the kernel's __launch_bounds__
-# dynamic shared memory a CTA may take (the card's 227 KB opt-in, less
-# the kernel's static arrays and a margin)
+# pass 2's host waits for the card (trace_scan: one per window of
+# QUEUE_BYTES, one per scan that fits)
+HOST_WAITS = {"pass2": 0}
+# dynamic shared memory a CTA may take (the card's 227 KB opt-in, less a
+# margin)
 SMEM_MAX = 232448 - 1024
+# a scan's chunks in flight side by side: one stream each, reused in turn
+STREAMS = 8
+# device bytes of pass 2's queued chunks (inputs and outputs) before the
+# host waits for them (trace_scan): one wait for a scan whose chunks fit
+QUEUE_BYTES = 2 << 30
 
 
 def _push(ring, new):
@@ -194,27 +205,74 @@ def trace_dp(block: ProfileBlock, eidx: np.ndarray, seq_len: np.ndarray,
     return alt, ys
 
 
+# The plan table: (widest K, plan kind, nodes a thread), the card's best
+# of chip_smoke.py --trace-sweep
+TRACE_TABLE = (
+    (512, "cta", 1),  # a CTA per hit
+    (1024, "cta", 2),
+    (1792, "cluster", 2),  # a cluster of CTAs per hit: 2, then 4 at K 2049
+    (2048, "cluster", 4),
+    (4096, "cluster", 2),
+)
+TRACE_KINDS = ("cta", "cluster")
+# the kernel's instantiations (csrc/traceback.cu DCP_TRACE_KERNELS): the
+# table's (kind, nodes a thread)
+TRACE_KERNELS = tuple(dict.fromkeys((k, n) for _, k, n in TRACE_TABLE))
+MAX_K = TRACE_TABLE[-1][0]
+CTA_THREADS = 512  # threads per CTA of a CTA or cluster plan, at most
+MAX_CLUSTER = 4  # CTAs per hit of a cluster plan, at most
+# the cross-warp tables of the CTA and cluster plans: 5 floats per warp of
+# a hit, for MAX_CLUSTER x 16 warps
+TABLE_BYTES = 4 * 5 * MAX_CLUSTER * CTA_THREADS // 32
+
+
 class TracePlan(NamedTuple):
     """Launch shape of the traceback kernel for width K."""
 
+    kind: str  # "cta" or "cluster" (TRACE_KINDS)
     npt: int  # consecutive nodes a thread
-    threads: int  # threads of the one CTA per hit
-    smem: int  # dynamic shared bytes
-    ring_in_smem: bool  # else the rings are device-memory scratch
+    warps: int  # warps of a hit in each of its CTAs
+    cluster: int  # CTAs per hit
+    threads: int  # threads per CTA
+    smem: int  # dynamic shared bytes per CTA: rings and tables
+
+
+def _rings(threads: int, npt: int) -> int:
+    """Bytes of one hit's (one CTA's share) M, I, D rings: [3][5][RS],
+    a column per node of the threads and the sentinel column."""
+    return 4 * 15 * (threads * npt + 1)
+
+
+def _plan(kind: str, npt: int, K: int) -> TracePlan:
+    """The launch shape of plan ``kind`` at ``npt`` nodes a thread for
+    width K: a CTA plan as many whole warps as K needs; a cluster plan
+    the fewest CTAs (2 or 4) that hold K at CTA_THREADS threads each, and
+    as many warps in each as its share of the nodes needs.  Raises if no
+    instantiation takes it."""
+    C = 1
+    if kind == "cluster":
+        C = 2
+        while C * CTA_THREADS * npt < K and C < MAX_CLUSTER:
+            C *= 2
+    warps = -(-(-(-K // C)) // (32 * npt))
+    plan = TracePlan(kind, npt, warps, C, 32 * warps,
+                     _rings(32 * warps, npt) + TABLE_BYTES)
+    if (kind, npt) not in TRACE_KERNELS:
+        raise ValueError(f"K={K}: no instantiation for {plan}")
+    if (plan.smem > SMEM_MAX or plan.threads > CTA_THREADS
+            or plan.threads * plan.npt * plan.cluster < K):
+        raise ValueError(f"K={K}: {plan} does not fit")
+    return plan
 
 
 def trace_plan(K: int) -> TracePlan:
-    """One CTA per hit: 1, 2, 4 or 8 nodes a thread up to K = 512, 1024,
-    2048, 4096 (at most MAX_THREADS threads); the M, I and D rings, 15 (K
-    + 1) floats, in shared memory where they fit beside the D-chain's
-    2 (K + 2), else in device memory."""
-    if not 0 < K <= 4096:
-        raise ValueError(f"K={K}: need 1..4096")
-    npt = next(n for n in (1, 2, 4, 8) if K <= n * MAX_THREADS)
-    threads = 32 * -(-K // (32 * npt))  # whole warps over ceil(K / npt)
-    ring = 4 * (15 * (K + 1) + 2 * (K + 2)) <= SMEM_MAX
-    floats = (15 * (K + 1) if ring else 0) + 2 * (K + 2)
-    return TracePlan(npt, threads, 4 * floats, ring)
+    """The traceback kernel's launch shape for width K (1..MAX_K), from
+    TRACE_TABLE.  A position's time grows with the nodes a thread holds,
+    so the table spreads a hit over as many threads as its width fills."""
+    if not 0 < K <= MAX_K:
+        raise ValueError(f"K={K}: need 1..{MAX_K}")
+    _, kind, npt = next(row for row in TRACE_TABLE if K <= row[0])
+    return _plan(kind, npt, K)
 
 
 class TracePack(NamedTuple):
@@ -248,15 +306,18 @@ def pack_trace(block: ProfileBlock, eidx: np.ndarray, seq_len: np.ndarray,
 
 
 class TraceOut(NamedTuple):
-    """The kernel's outputs in one device buffer, copied to the host in
-    one transfer."""
+    """The kernel's outputs in one device buffer (of one chunk, or a
+    chunk's share of a scan's buffer), copied to the host in one
+    transfer."""
 
     buf: torch.Tensor  # uint8
     views: dict  # name -> (offset, numpy dtype, shape)
 
-    def host(self) -> dict:
-        """ys as numpy arrays, as trace_dp returns them."""
-        raw = self.buf.cpu().numpy()
+    def host(self, raw: np.ndarray | None = None) -> dict:
+        """ys as numpy arrays, as trace_dp returns them: views of ``raw``,
+        the buffer already on the host, or of a copy made now."""
+        if raw is None:
+            raw = self.buf.cpu().numpy()
         return {
             k: raw[off:off + int(np.prod(shape)) * np.dtype(dt).itemsize]
             .view(dt).reshape(shape)
@@ -264,10 +325,11 @@ class TraceOut(NamedTuple):
         }
 
 
-def _layout(L: int, H: int, K: int) -> tuple[dict, int]:
-    """(name -> (byte offset, numpy dtype, shape), total bytes) of the
-    output buffer: the YS arrays in trace_dp's shapes, each 16-aligned."""
-    views, off = {}, 0
+def _layout(L: int, H: int, K: int, base: int = 0) -> tuple[dict, int]:
+    """(name -> (byte offset, numpy dtype, shape), end offset) of a
+    chunk's outputs in a buffer, from byte ``base``: the YS arrays in
+    trace_dp's shapes, each 16-aligned."""
+    views, off = {}, base
     for k in YS:
         if k in ("bpM", "bpI", "dD"):
             dt, shape = (np.bool_ if k == "dD" else np.int8), (L, H, K)
@@ -278,9 +340,18 @@ def _layout(L: int, H: int, K: int) -> tuple[dict, int]:
     return views, off
 
 
-def launch_trace(pk: TracePack) -> TraceOut:
-    """One launch of csrc/traceback.cu over the chunk ``pk``, on its
-    device; no fallback: a failed build or launch raises."""
+def launch_trace(pk: TracePack, out: TraceOut | None = None) -> TraceOut:
+    """One launch of csrc/traceback.cu over the chunk ``pk`` on its
+    device and the current stream, into ``out`` (a new buffer if None),
+    under ``trace_plan(K)``; no fallback: a failed build or launch, or a
+    refused cluster, raises."""
+    return _launch(pk, out, trace_plan(pk.fmT.shape[2]))
+
+
+def _launch(pk: TracePack, out: TraceOut | None,
+            plan: TracePlan) -> TraceOut:
+    """``launch_trace`` under ``plan`` (chip_smoke.py --trace-sweep times
+    the alternatives of ``_plan``)."""
     from deciphon_tpu_torch.ops import _build
 
     dev = pk.fmT.device
@@ -302,47 +373,33 @@ def launch_trace(pk: TracePack) -> TraceOut:
             raise ValueError(f"{name}: need a contiguous {dt} {shape} on "
                              f"{dev}, got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
-    plan = trace_plan(K)
-    views, nbytes = _layout(Lmax, H, K)
-    buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    if out is None:
+        views, nbytes = _layout(Lmax, H, K)
+        out = TraceOut(torch.empty(nbytes, dtype=torch.uint8, device=dev),
+                       views)
+    elif out.buf.device != dev or out.views["bpM"][2] != (Lmax, H, K):
+        raise ValueError(f"output buffer on {out.buf.device} for "
+                         f"{out.views['bpM'][2]}, chunk ({Lmax}, {H}, {K}) "
+                         f"on {dev}")
     if H == 0 or Lmax == 0:
-        return TraceOut(buf, views)
-    # the M, I and D rings where they do not fit in shared memory
-    scratch = (None if plan.ring_in_smem else
-               torch.empty((H, 15, K + 1), dtype=torch.float32, device=dev))
+        return out
 
     def ptr(k):
-        return buf.data_ptr() + views[k][0]
+        return out.buf.data_ptr() + out.views[k][0]
     with torch.cuda.device(dev):
         rc = lib.dcp_traceback(
             pk.fmT.data_ptr(), pk.fin.data_ptr(), pk.planes.data_ptr(),
             pk.eidx.data_ptr(), pk.sp.data_ptr(), ctypes.c_float(pk.EJ),
-            ctypes.c_float(pk.EC),
-            0 if scratch is None else scratch.data_ptr(),
-            *(ptr(k) for k in YS), H, K, ntab, Lmax, plan.npt,
-            plan.threads, plan.smem, int(plan.ring_in_smem),
+            ctypes.c_float(pk.EC), *(ptr(k) for k in YS), H, K, ntab, Lmax,
+            TRACE_KINDS.index(plan.kind), plan.npt, plan.warps, plan.cluster,
+            plan.threads, plan.smem,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"traceback kernel launch failed: "
+        raise RuntimeError(f"traceback kernel launch failed ({plan}): "
                            f"{_build.error_string(rc)}")
     LAUNCHES["traceback"] += 1
-    return TraceOut(buf, views)
-
-
-def trace_kernel(block: ProfileBlock, eidx: np.ndarray, seq_len: np.ndarray,
-                 multi_hits: bool, hmmer3_compat: bool, device="cuda"):
-    """``trace_dp``'s (alt, ys) from one launch of csrc/traceback.cu on
-    ``device`` (a card): the kernel is built first, so a missing
-    compiler raises before anything is uploaded."""
-    from deciphon_tpu_torch.ops import _build
-
-    _build.library()
-    pk = pack_trace(block, eidx, seq_len, multi_hits, hmmer3_compat, device)
-    ys = launch_trace(pk).host()
-    H = pk.fmT.shape[0]
-    alt = ys["VT"][np.asarray(seq_len) - 1, np.arange(H)]
-    return alt, ys
+    return out
 
 
 def walk(ys, L: int, K: int) -> list[tuple[int, int]]:
@@ -429,6 +486,19 @@ def chunks(profs: list, seqs: list[np.ndarray], kpad: int | None = None,
         yield H, block, eidx, lens
 
 
+def chunk_shapes(profs: list, seqs: list, kpad: int | None = None,
+                 codes: tuple | None = None):
+    """(H, padded H, Lmax, K, ntab) of each chunk of ``chunks``, known
+    before any block is built."""
+    ntab = frag_layout(4 + len(codes) if codes else 4)[1] + 1
+    for lo in range(0, len(profs), TRACE_BATCH):
+        chunk_p = profs[lo : lo + TRACE_BATCH]
+        H = len(chunk_p)
+        Lmax = max(len(s) for s in seqs[lo : lo + TRACE_BATCH])
+        K = kpad if kpad is not None else max(p.core_size for p in chunk_p)
+        yield H, 1 << (H - 1).bit_length(), Lmax, K, ntab
+
+
 def viterbi_alt_batch(
     profs: list,
     seqs: list[np.ndarray],
@@ -440,18 +510,129 @@ def viterbi_alt_batch(
 ) -> list[vr.ViterbiResult]:
     """Traceback of a stack of (profile, encoded read) hits, one DP per
     chunk of ``chunks``: the kernel on a card, ``trace_dp`` on the CPU;
-    walks stay per hit.  Reads holding the IUPAC ``codes`` (encoded 4+j,
-    alphabet.encode_extended) run on the extended base-(4+D) tables.
-    The DP is Viterbi under either scan semiring: a forward scan's hits
-    still decode their best path."""
-    trace = trace_kernel if torch.device(device).type == "cuda" else trace_dp
-    out: list[vr.ViterbiResult] = []
-    for H, block, eidx, lens in chunks(profs, seqs, kpad, codes):
-        alt, ys = trace(block, eidx, lens, multi_hits, hmmer3_compat, device)
-        K = block.fm.shape[1]
-        for h in range(H):
-            ys_h = {k: v[:, h] for k, v in ys.items()}
-            out.append(
-                vr.ViterbiResult(float(alt[h]), walk(ys_h, int(lens[h]), K))
-            )
-    return out
+    walks stay per hit (``trace_scan`` of one group).  Reads holding the
+    IUPAC ``codes`` (encoded 4+j, alphabet.encode_extended) run on the
+    extended base-(4+D) tables.  The DP is Viterbi under either scan
+    semiring: a forward scan's hits still decode their best path."""
+    return trace_scan([(profs, seqs, kpad, codes)], multi_hits,
+                      hmmer3_compat, device)[0]
+
+
+def _on_card(dev: torch.device) -> bool:
+    """Whether pass 2 runs the kernel on ``dev`` (else trace_dp)."""
+    return dev.type == "cuda"
+
+
+def _chunk_bytes(Hp: int, L: int, K: int, ntab: int) -> int:
+    """Device bytes a queued chunk holds until its launch ends: its
+    packed inputs (``TracePack``) and its share of the output buffer."""
+    inputs = 4 * Hp * (ntab * K + 2 * ntab + len(TRACE_PLANES) * K
+                       + 5 * L + 2)
+    return inputs + _layout(L, Hp, K)[1]
+
+
+def _windows(groups: list) -> list[list]:
+    """The chunks of ``groups`` in queue order, cut into windows of at
+    most QUEUE_BYTES (``_chunk_bytes``; a larger chunk is a window of its
+    own): per window its chunks' (group, real hits, output views), laid
+    out from byte 0 of the output buffer, and the window's end byte."""
+    windows, held = [], 0
+    for g, (profs, seqs, kpad, codes) in enumerate(groups):
+        for H, Hp, L, K, ntab in chunk_shapes(profs, seqs, kpad, codes):
+            size = _chunk_bytes(Hp, L, K, ntab)
+            if not windows or held + size > QUEUE_BYTES:
+                windows.append([[], 0])
+                held = 0
+            views, windows[-1][1] = _layout(L, Hp, K, windows[-1][1])
+            windows[-1][0].append((g, H, views))
+            held += size
+    return windows
+
+
+def _to_host(buf: torch.Tensor, end: int, streams: list) -> np.ndarray:
+    """The host wait of a window: the current stream joins the launch
+    streams, then the outputs' first ``end`` bytes come back in one
+    copy (counted in HOST_WAITS)."""
+    if streams:
+        main = torch.cuda.current_stream(buf.device)
+        for s in streams:
+            main.wait_stream(s)
+    HOST_WAITS["pass2"] += 1
+    return buf[:end].cpu().numpy()
+
+
+def trace_scan(groups: list, multi_hits: bool = True,
+               hmmer3_compat: bool = False,
+               device="cpu") -> list[list[vr.ViterbiResult]]:
+    """Pass 2 of a scan: for each group of ``groups``, (profiles, encoded
+    reads, kpad, codes), the traceback of its (profile, read) hits, one
+    DP per chunk of ``chunks`` and a walk per hit, with one host wait per
+    window of QUEUE_BYTES (``_windows``): one for a scan whose chunks fit
+    in it.
+
+    Every chunk of a window writes into its slice of one output buffer,
+    laid out before the first block is built and reused by the next
+    window.  On a card each chunk is uploaded on the current stream,
+    whose copies wait for nothing but that stream's own uploads, and
+    launched on a stream of its own (STREAMS, reused in turn), so the
+    launches run side by side and the host builds the next chunk's block
+    while the queued kernels run; one device-to-host copy after the
+    window's last launch (``_to_host``) is its only wait for the
+    kernels.  On the CPU each chunk is ``trace_dp``'s, written into the
+    same layout.  The window's walks follow, hit by hit."""
+    dev = torch.device(device)
+    card = _on_card(dev)
+    if card:
+        from deciphon_tpu_torch.ops import _build
+
+        _build.library()  # a missing compiler raises before any upload
+    windows = _windows(groups)
+    results: list[list[vr.ViterbiResult]] = [[] for _ in groups]
+    if not windows:
+        return results
+    buf = torch.empty(max(end for _, end in windows), dtype=torch.uint8,
+                      device=dev)
+    streams = []
+    if dev.type == "cuda":
+        main = torch.cuda.current_stream(dev)
+        streams = [torch.cuda.Stream(dev) for _ in range(
+            min(STREAMS, max(len(w) for w, _ in windows)))]
+    chunk_iter = (c for profs, seqs, kpad, codes in groups
+                  for c in chunks(profs, seqs, kpad, codes))
+    j = 0
+    for window, end in windows:
+        walks = []  # (read lengths, K) per chunk
+        for g, H, views in window:
+            _, block, eidx, lens = next(chunk_iter)
+            if views["bpM"][2] != (int(lens.max()), *block.fm.shape[:2]):
+                raise AssertionError(f"chunk {j}: layout {views['bpM'][2]}")
+            if card:
+                pk = pack_trace(block, eidx, lens, multi_hits, hmmer3_compat,
+                                dev)
+                ctx = contextlib.nullcontext()
+                if streams:
+                    s = streams[j % len(streams)]
+                    s.wait_stream(main)  # the uploads, and the last copy
+                    for x in pk[:5]:  # freed only after the launch on s
+                        x.record_stream(s)
+                    ctx = torch.cuda.stream(s)
+                with ctx:
+                    launch_trace(pk, TraceOut(buf, views))
+            else:
+                _, ys = trace_dp(block, eidx, lens, multi_hits,
+                                 hmmer3_compat, dev)
+                raw = buf.numpy()
+                for k, (off, dt, shape) in views.items():
+                    b = np.ascontiguousarray(ys[k], dtype=dt).view(np.uint8)
+                    raw[off:off + b.size] = b.ravel()
+            walks.append((lens, block.fm.shape[1]))
+            j += 1
+        raw = _to_host(buf, end, streams)  # the window's one wait
+        for (g, H, views), (lens, K) in zip(window, walks):
+            ys = TraceOut(buf, views).host(raw)
+            for h in range(H):
+                ys_h = {k: v[:, h] for k, v in ys.items()}
+                results[g].append(vr.ViterbiResult(
+                    float(ys["VT"][lens[h] - 1, h]),
+                    walk(ys_h, int(lens[h]), K)))
+    return results

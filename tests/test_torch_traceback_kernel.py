@@ -8,15 +8,22 @@ version, on the CPU.
   seq_len): all four flag pairs, base 4, 5 and 6 tables, dead DD links,
   a profile of identical flat nodes that forces ties, 1, 3 and 5 hits
   (padded to 1, 4 and 8) and an empty read beside others.
-- The kernel's packing (``pack_trace``, ``trace_plan``, the output
-  buffer's layout) is checked without a card, and ``kernel_mirror``, a
-  numpy copy of csrc/traceback.cu's order of operations (its rings with
-  a sentinel column, slots, strict ``>`` over the candidates, the
-  thread/warp prefix scan and lowest-index E reduction), equals
-  ``trace_dp`` bit for bit on every row, padding rows included.
-- ``viterbi_alt_batch`` runs ``trace_dp`` on the CPU and never reaches
-  the kernel's wrapper; on a CUDA device a failing build raises and
-  ``trace_dp`` is not called.
+- The kernel's packing (``pack_trace``, the plan table ``trace_plan``
+  for every width, the output buffer's layout) is checked without a
+  card, and ``kernel_mirror``, a numpy copy of csrc/traceback.cu's
+  order of operations (ring slots with node k - 1 in column k, the
+  candidate lists as trees of contiguous runs, the thread/warp prefix
+  scan with the warps' table entries, the k - 1 / k - 2 neighbours from
+  the thread before, the lowest-index E reduction, the specials one
+  lookback a lane), equals ``trace_dp`` bit for bit on every row,
+  padding rows included, under each plan kind (CTA, cluster).
+- ``viterbi_alt_batch`` and ``trace_scan`` run ``trace_dp`` on the CPU
+  and never reach the kernel's wrapper; on a CUDA device a failing
+  build raises and ``trace_dp`` is not called.
+- A scan's pass 2 through ``trace_scan`` gives the hits of the
+  per-group path; its kernel branch, with ``kernel_mirror`` in the
+  kernel's place, queues one launch per chunk into one buffer before
+  one copy to the host.
 The kernel itself runs only on the card (chip_smoke.py phases 2-3).
 """
 
@@ -84,10 +91,12 @@ def hits(case: str):
         return ([tie_profile(jprofile, 12)], [tie_profile(pprofile, 12)],
                 ["ACGTACGTACGTACGTAAAACCCGGGTTTACGTACG"], ())
     n, codes = {"flags": (3, ()), "base5": (5, ("N",)),
-                "base6": (5, ("N", "R")), "empty": (3, ())}[case]
+                "base6": (5, ("N", "R")), "empty": (3, ()),
+                "wide": (3, ())}[case]
     jps, pps, reads = [], [], []
     for j in range(n):
-        k = int(rng.integers(4, 13))
+        k = int(rng.integers(70, 100) if case == "wide"
+                else rng.integers(4, 13))
         jp = jprofile.sample_profile(40 + j, k)
         pp = pprofile.sample_profile(40 + j, k)
         if j == 1:  # two dead D->D links inside the core
@@ -106,7 +115,7 @@ def hits(case: str):
 
 CASES = [("flags", mh, h3) for mh, h3 in FLAGS] + [
     ("base5", True, False), ("base6", False, True), ("ties", True, False),
-    ("empty", True, False),
+    ("empty", True, False), ("wide", False, True),
 ]
 
 
@@ -148,7 +157,7 @@ def test_trace_dp_arrays_equal_jax(case, mh, h3, monkeypatch):
     the specials' last bit at most (1e-6 relative)."""
     H, block, jblock, eidx, lens = chunk(case)
     assert len(lens) == {"flags": 4, "base5": 8, "base6": 8, "ties": 1,
-                         "empty": 4}[case]
+                         "empty": 4, "wide": 4}[case]
     _, _, jys = jtr._trace_scan_batch(
         tuple(jblock), jnp.asarray(eidx), jnp.asarray(lens), mh, h3)
     assert set(ptr.YS) <= set(jys)
@@ -188,122 +197,189 @@ def live_ties(monkeypatch, block, eidx, lens, mh, h3) -> int:
     return n[0]
 
 
+def mirror_plan(kind: str, npt: int, K: int, C: int = 2) -> ptr.TracePlan:
+    """A plan of ``kind`` at ``npt`` nodes a thread for width K, with as
+    many warps as K needs (a cluster of C CTAs: per CTA, over K / C
+    nodes); kernel_mirror takes any npt, the kernel only its
+    instantiations."""
+    C = 1 if kind == "cta" else C
+    warps = -(-(-(-K // C)) // (32 * npt))
+    return ptr.TracePlan(kind, npt, warps, C, 32 * warps, 0)
+
+
 def kernel_mirror(pk: ptr.TracePack, plan: ptr.TracePlan) -> dict:
     """numpy copy of csrc/traceback.cu's order of operations on a
-    ``pack_trace`` chunk (CPU tensors): ys as ``trace_dp`` returns them."""
+    ``pack_trace`` chunk (CPU tensors) under ``plan``: ys as ``trace_dp``
+    returns them.  The nodes split over threads (npt each), warps and
+    the CTAs of a cluster as the plan splits them: ring slots by
+    position % 5 with node k - 1 in column k, the candidate lists as the
+    kernel's trees of contiguous runs (a later run wins only when
+    strictly greater: lookbacks 2..5 first, then lookback 1's (M, (I,
+    D)) and last its B origin, the one candidate that needs the position
+    before's VB), the D-chain as thread prefixes, a warp scan
+    (shfl_up) and the warp totals before each warp, the k - 1 and k - 2
+    neighbours of a and b from the thread before (a shuffle, or the
+    previous warp's table entries), E as thread joins, a warp butterfly
+    and the warps' winners in order, and the N, J, C specials one
+    lookback a lane joined by an xor butterfly over 8 lanes."""
     f32 = np.float32
     NEG, NINF = f32(-1e30), f32(-np.inf)
+    BIG = 2 ** 31 - 1
     fmT, fin, planes, eidx, sp = (
         x.numpy() for x in (pk.fmT, pk.fin, pk.planes, pk.eidx, pk.sp))
     EJ, EC = f32(pk.EJ), f32(pk.EC)
     H, _, K = fmT.shape
     Lmax = eidx.shape[1]
-    T, NPT = plan.threads, plan.npt
-    W = T // 32
-    assert T % 32 == 0 and T * NPT >= K and (T - 32) * NPT < K
+    NPT, NT, C = plan.npt, plan.threads, plan.cluster
+    if plan.kind == "cta":
+        assert C == 1 and (NT - 32) * NPT < K <= NT * NPT
+    else:
+        assert 2 <= C <= ptr.MAX_CLUSTER
+        assert (C - 1) * NT * NPT < K <= C * NT * NPT
+    T = NT * C  # threads of a hit, CTA by CTA
+    W = T // 32  # its warps: the cross-warp tables' entries
+    N = T * NPT
+    node = np.arange(N).reshape(T, NPT)  # thread t's nodes
+    k0 = node[:, 0]
+    lane = np.arange(T) % 32
+    warp = np.arange(T) // 32
+    live = node < K
     ys = {k: np.zeros((Lmax, H, K), dt) for k, dt in (
         ("bpM", np.int8), ("bpI", np.int8), ("dD", np.bool_))}
     for k in ("bpE", "bpN", "bpJ", "bpC", "bpB", "bpT"):
         ys[k] = np.zeros((Lmax, H), np.int32)
     ys["VT"] = np.zeros((Lmax, H), f32)
-    node = np.arange(T * NPT).reshape(T, NPT)  # thread t's nodes
-    live = node < K
+
+    def first_max(v, c, v2, c2):
+        take = v2 > v
+        return np.where(take, v2, v), np.where(take, c2, c)
+
+    def arg_join(v, i, v2, i2):
+        take = (v2 > v) | ((v2 == v) & (i2 < i))
+        return np.where(take, v2, v), np.where(take, i2, i)
+
+    def up(x, o=1):  # __shfl_up_sync within each warp
+        y = x.reshape(-1, 32)
+        z = np.concatenate([y[:, :o], y[:, :-o]], 1)
+        return z.reshape(x.shape)
+
+    def nodes(row):  # a row over the nodes, NEG past K
+        out = np.full(N, NEG, f32)
+        out[:K] = row
+        return out
+
     for h in range(H):
-        (entry, mm, im, dm, mi, ii, md_next, cdd_next, cdd) = planes[h]
-        ring = np.full((3, 5, K + 1), NEG, f32)  # column k is node k - 1
-        sa = np.full(K + 2, NEG, f32)  # node k at k + 2
-        sb = np.full(K + 2, NEG, f32)
+        (entry, mm, im, dm, mi, ii, mdn, cddn, cdd) = (
+            nodes(r) for r in planes[h])
+        # M, I, D by slot: column c is node c - 1, column 0 NEG
+        ring = np.full((3, 5, N + 1), NEG, f32)
         NN, NB = sp[h]
-        rS = np.array([0] + [NEG] * 4, f32)
-        rB = np.array([NB] + [NEG] * 4, f32)
-        rN, rJ, rC, rE = (np.full(5, NEG, f32) for _ in range(4))
+        rB = np.array([NB] + [NEG] * 4, f32)  # by slot
+        sN, sJ, sC, sE = (np.full(5, NEG, f32) for _ in range(4))  # lanes
         for pos in range(Lmax):
             i = pos + 1
             idx = eidx[h, pos]
             emi, emn = fin[h, 0, idx], fin[h, 1, idx]
-            ks = np.arange(K)
-            bm = bi = None
-            cm = np.zeros(K, np.int8)
-            ci = np.zeros(K, np.int8)
-            for l in range(5):
-                slot = (i - 1 - l + 5) % 5
-                em = fmT[h, idx[l]]
-                cands = [(rB[l] + entry) + em,
-                         (ring[0, slot, ks] + mm) + em,
-                         (ring[1, slot, ks] + im) + em,
-                         (ring[2, slot, ks] + dm) + em]
-                for o, c in enumerate(cands):
-                    if bm is None:
-                        bm = c
-                        continue
-                    take = c > bm
-                    bm = np.where(take, c, bm)
-                    cm = np.where(take, 4 * l + o, cm).astype(np.int8)
-                for o, c in enumerate([(ring[0, slot, ks + 1] + mi) + emi[l],
-                                       (ring[1, slot, ks + 1] + ii) + emi[l]]):
-                    if bi is None:
-                        bi = c
-                        continue
-                    take = c > bi
-                    bi = np.where(take, c, bi)
-                    ci = np.where(take, 2 * l + o, ci).astype(np.int8)
-            ys["bpM"][pos, h], ys["bpI"][pos, h] = cm, ci
-            a = (bm + md_next) - cdd_next
-            sa[2:] = a
-            # thread prefix, warp scan of the thread totals, warps before
-            av = np.full((T, NPT), NINF, f32)
-            av[live] = a[node[live]]
+            # lookbacks 2..5 (computed while the position before settles)
+            for l in range(1, 5):
+                slot = (i - 1 - l) % 5
+                em = nodes(fmT[h, idx[l]])
+                m, iv, d = ring[0, slot], ring[1, slot], ring[2, slot]
+                v, c = (rB[slot] + entry) + em, np.full(N, 4 * l)
+                v, c = first_max(v, c, (m[:-1] + mm) + em, 4 * l + 1)
+                w, cw = (iv[:-1] + im) + em, np.full(N, 4 * l + 2)
+                w, cw = first_max(w, cw, (d[:-1] + dm) + em, 4 * l + 3)
+                v, c = first_max(v, c, w, cw)
+                u, cu = (m[1:] + mi) + emi[l], np.full(N, 2 * l)
+                u, cu = first_max(u, cu, (iv[1:] + ii) + emi[l], 2 * l + 1)
+                if l == 1:
+                    pM, pcM, pI, pcI = v, c, u, cu
+                else:
+                    pM, pcM = first_max(pM, pcM, v, c)
+                    pI, pcI = first_max(pI, pcI, u, cu)
+            # lookback 1: (M, (I, D)), the rest, then B (index 0) first
+            slot = (i - 1) % 5
+            em = nodes(fmT[h, idx[0]])
+            m, iv, d = ring[0, slot], ring[1, slot], ring[2, slot]
+            v, c = (m[:-1] + mm) + em, np.full(N, 1)
+            w, cw = (iv[:-1] + im) + em, np.full(N, 2)
+            w, cw = first_max(w, cw, (d[:-1] + dm) + em, 3)
+            v, c = first_max(v, c, w, cw)
+            v, c = first_max(v, c, pM, pcM)
+            VM, cm = first_max((rB[slot] + entry) + em, np.full(N, 0), v, c)
+            VI, ci = first_max((m[1:] + mi) + emi[0], np.full(N, 0),
+                               (iv[1:] + ii) + emi[0], 1)
+            VI, ci = first_max(VI, ci, pI, pcI)
+            ys["bpM"][pos, h], ys["bpI"][pos, h] = cm[:K], ci[:K]
+            # D-chain: thread prefixes, warp scan, the warps before
+            av = np.where(live, (VM.reshape(T, NPT) + mdn.reshape(T, NPT))
+                          - cddn.reshape(T, NPT), NINF)
             pre = np.maximum.accumulate(av, axis=1)
-            x = pre[:, -1].reshape(W, 32)
-            x = np.maximum.accumulate(x, axis=1)
-            excl = np.concatenate([np.full((W, 1), NINF, f32), x[:, :-1]], 1)
-            tot = x[:, -1]
-            before = np.concatenate([[NINF], np.maximum.accumulate(tot)[:-1]])
-            excl = np.maximum(excl, before[:, None]).reshape(T)
-            b = np.maximum(excl[:, None], pre)[live]
-            sb[2:] = b[np.argsort(node[live])]
-            VD = np.maximum(cdd + sb[1:K + 1], NEG)
-            ys["dD"][pos, h] = sa[1:K + 1] < sb[0:K]
-            cur = i % 5
-            ring[0, cur, 1:], ring[1, cur, 1:], ring[2, cur, 1:] = bm, bi, VD
-            # E: each thread its M then D candidates, warp butterfly,
-            # then the warps in order, lowest index on equal values
-            ev = np.full(T, NINF, f32)
-            ei = np.full(T, 2 ** 31 - 1, np.int64)
-
-            def join(v, j, v2, j2):
-                take = (v2 > v) | ((v2 == v) & (j2 < j))
-                return np.where(take, v2, v), np.where(take, j2, j)
-
+            x = pre[:, -1].copy()
+            o = 1
+            while o < 32:
+                x = np.where(lane >= o, np.maximum(x, up(x, o)), x)
+                o *= 2
+            excl = np.where(lane == 0, NINF, up(x))
+            q = np.maximum(excl, pre[:, NPT - 2]) if NPT >= 2 else excl
+            q_up, a_up = up(q), up(av[:, -1])
+            tot = x[31::32]
+            before = np.concatenate([[NINF], np.maximum.accumulate(tot)])
+            before2 = np.concatenate([[NINF], before[:-1]])
+            first = (lane == 0) & (warp > 0)
+            q_up = np.where(first, q[np.maximum(32 * warp - 1, 0)], q_up)
+            a_up = np.where(first, av[np.maximum(32 * warp - 1, 0), -1],
+                            a_up)
+            bw, bw2 = before[warp], before2[warp]
+            E = np.maximum(excl, bw)
+            b_m1 = np.where(k0 == 0, NEG, E)
+            b_m2 = np.where(k0 < 2, NEG,
+                            np.maximum(q_up, np.where(lane == 0, bw2, bw)))
+            a_m1 = np.where(k0 == 0, NEG, a_up)
+            b = np.maximum(E[:, None], pre)
+            bm1 = np.concatenate([b_m1[:, None], b[:, :-1]], 1)
+            VD = np.maximum(cdd.reshape(T, NPT) + bm1, NEG)
+            am1 = np.concatenate([a_m1[:, None], av[:, :-1]], 1)
+            bm2 = np.concatenate([b_m2[:, None], b_m1[:, None], b], 1)
+            dd = am1 < bm2[:, :NPT]
+            ys["dD"][pos, h] = dd.reshape(-1)[:K]
+            VD = VD.reshape(-1)
+            # E: each thread its M then D candidates, a warp butterfly,
+            # then the warps' winners in order
+            ev, eb = np.full(T, NINF, f32), np.full(T, BIG, np.int64)
             for n in range(NPT):
                 k = node[:, n]
                 ok = k < K
                 kk = np.minimum(k, K - 1)
-                vm = np.where(ok, bm[kk], NINF)
+                vm = np.where(ok, VM[kk], NINF)
                 vd = np.where(ok, np.where(kk == 0, NEG, VD[kk]), NINF)
-                ev, ei = join(ev, ei, vm, np.where(ok, kk, ei))
-                ev, ei = join(ev, ei, vd, np.where(ok, K + kk, ei))
-            ev, ei = ev.reshape(W, 32), ei.reshape(W, 32)
+                ev, eb = arg_join(ev, eb, vm, np.where(ok, kk, BIG))
+                ev, eb = arg_join(ev, eb, vd, np.where(ok, K + kk, BIG))
             for o in (16, 8, 4, 2, 1):
-                lanes = np.arange(32) ^ o
-                ev, ei = join(ev, ei, ev[:, lanes], ei[:, lanes])
-            VE, bE = ev[0, 0], ei[0, 0]
+                src = (np.arange(T) // 32) * 32 + (lane ^ o)
+                ev, eb = arg_join(ev, eb, ev[src], eb[src])
+            VE, bE = ev[0], eb[0]
             for w in range(1, W):
-                VE, bE = join(VE, bE, ev[w, 0], ei[w, 0])
-            # specials, as every thread computes them
+                VE, bE = arg_join(VE, bE, ev[32 * w], eb[32 * w])
+            cur = i % 5
+            ring[0, cur, 1:], ring[1, cur, 1:], ring[2, cur, 1:] = VM, VI, VD
+            # N, J, C: lane l < 5 its lookback, xor butterfly over 8 lanes
+            ls = np.arange(8)
+            lb = np.minimum(ls, 4)
+            em = emn[lb]
+            sS = np.where(ls == i - 1, f32(0), NEG)
             best = {}
             for name, c0, c1 in (
-                ("N", (rS + NN) + emn, (rN + NN) + emn),
-                ("J", ((rE + EJ) + NN) + emn, (rJ + NN) + emn),
-                ("C", ((rE + EC) + NN) + emn, (rC + NN) + emn),
+                ("N", (sS + NN) + em, (sN[lb] + NN) + em),
+                ("J", ((sE[lb] + EJ) + NN) + em, (sJ[lb] + NN) + em),
+                ("C", ((sE[lb] + EC) + NN) + em, (sC[lb] + NN) + em),
             ):
-                v, code = c0[0], 0
-                for l in range(5):
-                    if l and c0[l] > v:
-                        v, code = c0[l], 2 * l
-                    if c1[l] > v:
-                        v, code = c1[l], 2 * l + 1
-                best[name] = (f32(v), code)
+                v, c = first_max(c0, 2 * lb, c1, 2 * lb + 1)
+                v = np.where(ls >= 5, NINF, v)
+                c = np.where(ls >= 5, BIG, c)
+                for o in (4, 2, 1):
+                    v, c = arg_join(v, c, v[ls ^ o], c[ls ^ o])
+                best[name] = (f32(v[0]), int(c[0]))
             VNn, VJn, VCn = (best[n][0] for n in "NJC")
             VBn, cB = NEG, 0
             for code, c in ((1, VNn + NB), (2, (VE + EJ) + NB),
@@ -317,27 +393,45 @@ def kernel_mirror(pk: ptr.TracePack, plan: ptr.TracePlan) -> dict:
                          ("bpJ", best["J"][1]), ("bpC", best["C"][1]),
                          ("bpB", cB), ("bpT", cT), ("VT", VTn)):
                 ys[k][pos, h] = v
-            for r, v in ((rS, NEG), (rN, VNn), (rJ, VJn), (rC, VCn),
-                         (rE, VE), (rB, VBn)):
+            rB[cur] = VBn
+            for r, v in ((sN, VNn), (sJ, VJn), (sC, VCn), (sE, VE)):
                 r[1:] = r[:-1].copy()
                 r[0] = v
     return ys
+
+
+def mirror_plans(K: int) -> list:
+    """The plans kernel_mirror runs at width K: trace_plan's, one warp
+    of ceil(K / 32) nodes a lane, and every kind at 1 and 2 nodes a
+    thread where K gives it more than one warp (clusters of 2 and 4 CTAs
+    where the last CTA holds a node)."""
+    plans = [ptr.trace_plan(K), mirror_plan("cta", -(-K // 32), K)]
+    for npt in (1, 2):
+        if K > 32 * npt:
+            plans.append(mirror_plan("cta", npt, K))
+        for C in (2, 4):
+            p = mirror_plan("cluster", npt, K, C)
+            if (C - 1) * p.threads * npt < K:
+                plans.append(p)
+    return plans
 
 
 @pytest.mark.parametrize("case,mh,h3", CASES)
 def test_kernel_mirror_equals_trace_dp(case, mh, h3):
     """The kernel's order of operations gives trace_dp's arrays bit for
     bit, every row (past seq_len too: the kernel runs every hit to the
-    chunk's Lmax, as trace_dp does); several nodes a thread and several
-    warps are exercised by forcing small plans."""
+    chunk's Lmax, as trace_dp does), under every plan kind: a CTA of one
+    warp or several, and a cluster whose CTAs split the nodes (the
+    "wide" case gives several warps and both CTAs)."""
     _, block, _, eidx, lens = chunk(case)
     _, ys = ptr.trace_dp(block, eidx, lens, mh, h3)
     pk = ptr.pack_trace(block, eidx, lens, mh, h3, "cpu")
     K = pk.fmT.shape[2]
-    for plan in (ptr.trace_plan(K), ptr.TracePlan(2, 32, 0, True),
-                 ptr.TracePlan(1, 32 * -(-K // 32), 0, True)):
-        if plan.threads * plan.npt < K:
-            continue
+    plans = mirror_plans(K)
+    if case == "wide":
+        assert {p.kind for p in plans} == set(ptr.TRACE_KINDS)
+        assert max(p.warps * p.cluster for p in plans) > 2
+    for plan in plans:
         got = kernel_mirror(pk, plan)
         for k in ptr.YS:
             np.testing.assert_array_equal(got[k], ys[k].astype(got[k].dtype),
@@ -384,20 +478,61 @@ def test_pack_trace_layout():
 
 
 def test_trace_plan_fits_every_width():
-    """Every width 1..4096 has a plan the entry point accepts: whole
-    warps of at most 512 threads covering K with no idle warp, and the
-    dynamic shared memory the kernel needs within the card's opt-in."""
-    for K in range(1, 4097):
+    """Every width 1..4096 gets exactly one plan, TRACE_TABLE's row, that
+    an instantiation of the kernel takes (the entry point's checks,
+    csrc/traceback.cu launch): a CTA of whole warps with no idle warp,
+    or a cluster of 2 or 4 CTAs whose last CTA holds real nodes; the
+    dynamic shared memory (rings and cross-warp tables) within the
+    card's opt-in and the threads within the __launch_bounds__.  The
+    kernel's instantiations are the table's, and every alternative of
+    chip_smoke.py's sweep is one."""
+    import re
+    from pathlib import Path
+
+    import chip_smoke
+
+    src = (Path(ptr.__file__).parents[1] / "csrc" / "traceback.cu").read_text()
+    body = src[src.index("#define DCP_TRACE_KERNELS"):]
+    body = body[:body.index("\n\n")]
+    kinds = {"CTA": "cta", "CLUS": "cluster"}
+    assert tuple((kinds[k], int(n)) for k, n in re.findall(
+        r"X\((\w+), (\d+)\)", body)) == ptr.TRACE_KERNELS
+    assert re.search(r"enum \{ CTA, CLUS \};", src)  # TRACE_KINDS order
+    rows = {}
+    for K in range(1, ptr.MAX_K + 1):
         p = ptr.trace_plan(K)
-        assert p.npt in (1, 2, 4, 8)
-        assert p.threads % 32 == 0 and 32 <= p.threads <= ptr.MAX_THREADS
-        assert p.threads * p.npt >= K > (p.threads - 32) * p.npt
-        floats = (15 * (K + 1) if p.ring_in_smem else 0) + 2 * (K + 2)
-        assert p.smem == 4 * floats <= ptr.SMEM_MAX
-    assert ptr.trace_plan(3072).ring_in_smem
-    assert not ptr.trace_plan(4096).ring_in_smem
-    with pytest.raises(ValueError):
-        ptr.trace_plan(4097)
+        top, kind, npt = next(r for r in ptr.TRACE_TABLE if K <= r[0])
+        rows.setdefault(top, []).append(K)
+        assert (p.kind, p.npt) == (kind, npt)
+        NT = 32 * p.warps
+        rings = 4 * 15 * (NT * p.npt + 1)
+        if p.kind == "cta":
+            assert p.cluster == 1 and p.threads == NT
+            assert (NT - 32) * p.npt < K <= NT * p.npt
+            assert p.smem == rings + ptr.TABLE_BYTES
+        else:
+            C = p.cluster
+            assert p.threads == NT
+            assert C in (2, 4) and C <= ptr.MAX_CLUSTER
+            assert (C - 1) * NT * p.npt < K <= C * NT * p.npt
+            assert (NT - 32) * p.npt < -(-K // C)
+            assert C == 2 or (C // 2) * ptr.CTA_THREADS * p.npt < K
+            assert p.smem == rings + ptr.TABLE_BYTES
+        assert p.threads <= ptr.CTA_THREADS and p.smem <= ptr.SMEM_MAX
+    # each row of the table holds the widths above the row before
+    tops = [r[0] for r in ptr.TRACE_TABLE]
+    assert [(ks[0], ks[-1]) for ks in rows.values()] == list(
+        zip([1] + [t + 1 for t in tops[:-1]], tops))
+    for K, _, _, alts in chip_smoke.TRACE_SWEEP:
+        for kind, npt in alts:
+            assert ptr._plan(kind, npt, K)[:2] != ptr.trace_plan(K)[:2]
+    for bad in (0, 4097):
+        with pytest.raises(ValueError):
+            ptr.trace_plan(bad)
+    with pytest.raises(ValueError):  # no instantiation: 4 nodes a thread
+        ptr._plan("cta", 4, 384)
+    with pytest.raises(ValueError):  # 18 warps > CTA_THREADS
+        ptr._plan("cta", 2, 1100)
 
 
 def test_output_buffer_round_trip():
@@ -420,26 +555,29 @@ def test_output_buffer_round_trip():
 
 
 def test_cpu_never_reaches_the_kernel(monkeypatch):
-    """On the CPU viterbi_alt_batch runs trace_dp, one call per chunk,
-    and never the kernel's wrapper."""
+    """On the CPU viterbi_alt_batch and a scan's pass 2 (trace_scan) run
+    trace_dp, one call per chunk, and never the kernel's wrapper."""
     def boom(*a, **k):
         raise AssertionError("kernel wrapper called on the CPU")
 
     calls = []
     real = ptr.trace_dp
-    monkeypatch.setattr(ptr, "trace_kernel", boom)
     monkeypatch.setattr(ptr, "launch_trace", boom)
+    monkeypatch.setattr(ptr, "_launch", boom)
     monkeypatch.setattr(
         ptr, "trace_dp", lambda *a, **k: calls.append(1) or real(*a, **k))
     _, pps, reads, _ = hits("flags")
     encs = [encode_extended(r)[0] for r in reads]
     res = ptr.viterbi_alt_batch(pps, encs, device="cpu")
     assert len(res) == len(reads) and calls == [1]
+    (got,) = ptr.trace_scan([(pps, encs, None, ())], device="cpu")
+    assert got == res and calls == [1, 1]
 
 
 def test_cuda_build_failure_raises(monkeypatch):
-    """On a CUDA device a failing kernel build raises; trace_dp is never
-    the fallback."""
+    """On a CUDA device a failing kernel build raises, in
+    viterbi_alt_batch and in trace_scan, before anything is uploaded;
+    trace_dp is never the fallback."""
     from deciphon_tpu_torch.ops import _build
 
     def no_nvcc():
@@ -454,6 +592,8 @@ def test_cuda_build_failure_raises(monkeypatch):
     encs = [encode_extended(r)[0] for r in reads]
     with pytest.raises(RuntimeError, match="nvcc"):
         ptr.viterbi_alt_batch(pps, encs, device="cuda")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ptr.trace_scan([(pps, encs, None, ())], device="cuda")
 
 
 def test_launch_refuses_a_cpu_chunk():
@@ -463,3 +603,207 @@ def test_launch_refuses_a_cpu_chunk():
     pk = ptr.pack_trace(block, eidx, lens, True, False, "cpu")
     with pytest.raises(ValueError, match="runs on a card"):
         ptr.launch_trace(pk)
+
+
+@pytest.fixture(scope="module")
+def scan_db(tmp_path_factory):
+    """Profiles of cores 10, 40 and 70 (three padded widths, 32, 64 and
+    96), pressed by the port."""
+    from deciphon_tpu_torch.db.format import TensorDB, write_db
+    from deciphon_tpu_torch.models.h3reader import press_file
+    from deciphon_tpu_torch.models.h3writer import random_h3, write_h3
+
+    tmp = tmp_path_factory.mktemp("trace_scan")
+    hmm = tmp / "synth.hmm"
+    with open(hmm, "w") as fp:
+        write_h3(fp, [random_h3(s, k, peak=0.9)
+                      for s, k in [(11, 10), (12, 40), (13, 70)]])
+    dbp = str(tmp / "synth.dtp")
+    write_db(dbp, press_file(str(hmm)))
+    return TensorDB.load(dbp)
+
+
+def scan_reads(db):
+    """Consensus reads of each profile, two of them with an N, a second
+    read of profile 1's consensus and a random read: survivors in
+    (width, class) groups of both classes, one group of two."""
+    from deciphon_tpu_torch.models.alphabet import STANDARD_CODE
+    from deciphon_tpu_torch.ops.scan_engine import SeqRecord
+
+    def cons(j):
+        p = db.profile(j)
+        return "".join(STANDARD_CODE.codon_str(b // 16, (b // 4) % 4, b % 4)
+                       for b in map(int, np.argmax(p.match_codonp, 1)))
+    reads = [cons(0), cons(1), cons(2)]
+    reads += [r[:7] + "N" + r[8:] for r in reads[1:]] + [reads[1][3:]]
+    reads.append("".join(np.random.default_rng(5).choice(list("ACGT"), 90)))
+    return [SeqRecord(j + 1, f"r{j}", r) for j, r in enumerate(reads)]
+
+
+def per_group_hits(engine, seqs):
+    """Pass 2 as the engine ran it before trace_scan: one
+    viterbi_alt_batch per (width, class) group, in trace_groups' order,
+    each hit's (read, profile, path, match string)."""
+    from deciphon_tpu_torch.models import codec
+
+    encoded, _ = engine.encode(seqs)
+    out = []
+    for (kpad, codes), items in engine.trace_groups(
+            engine.last_survivors).items():
+        profs = [engine.db.profile(gi) for _, gi, *_ in items]
+        res = ptr.viterbi_alt_batch(
+            profs, [encoded[si] for si, *_ in items],
+            multi_hits=engine.params.multi_hits,
+            hmmer3_compat=engine.params.hmmer3_compat, kpad=kpad,
+            device=engine.device, codes=codes)
+        for (si, gi, *_), prof, r in zip(items, profs, res):
+            out.append((si, gi, r.path, codec.render_match(
+                codec.match_steps(prof, seqs[si].data, r.path))))
+    return sorted(out, key=lambda x: x[:2])
+
+
+def test_trace_scan_equals_per_group_path(scan_db):
+    """A CPU scan whose pass 2 queues every group through trace_scan
+    gives the hits (paths and match strings) of the per-group path,
+    with survivors in several (width, class) groups."""
+    from deciphon_tpu_torch.ops.scan_engine import ScanEngine
+
+    engine = ScanEngine(scan_db, device="cpu")
+    seqs = scan_reads(scan_db)
+    waits = ptr.HOST_WAITS["pass2"]
+    hits_ = engine.scan(seqs)
+    assert ptr.HOST_WAITS["pass2"] == waits + 1
+    groups = engine.trace_groups(engine.last_survivors)
+    assert len(groups) >= 4 and {c for _, c in groups} == {(), ("N",)}
+    assert len({k for k, _ in groups}) == 3
+    got = sorted(((h.seq_idx, h.profile_idx, h.path, h.match)
+                  for h in hits_), key=lambda x: x[:2])
+    assert got == per_group_hits(engine, seqs)
+
+
+def test_trace_scan_queues_every_chunk_before_one_wait(scan_db,
+                                                       monkeypatch):
+    """trace_scan's kernel branch, run on the CPU with kernel_mirror in
+    the kernel's place: one launch per chunk of every group (chunks of
+    one hit here, so the group of two is two chunks), each into its own
+    slice of the scan's one buffer, all launches before the one copy to
+    the host and before any walk; the hits equal the per-group path's."""
+    from deciphon_tpu_torch.ops import _build
+    from deciphon_tpu_torch.ops.scan_engine import ScanEngine
+
+    log = []
+
+    def mirror_launch(pk, out=None):
+        views = out.views
+        assert views["bpM"][2] == (pk.eidx.shape[1], *pk.fmT.shape[::2])
+        ys = kernel_mirror(pk, ptr.trace_plan(pk.fmT.shape[2]))
+        raw = out.buf.numpy()
+        for k, (off, dt, shape) in views.items():
+            b = np.ascontiguousarray(ys[k], dtype=dt).view(np.uint8)
+            raw[off:off + b.size] = b.ravel()
+        ptr.LAUNCHES["traceback"] += 1
+        log.append(("launch", views["bpM"][0]))
+        return out
+
+    real_walk = ptr.walk
+
+    def logged_walk(*a, **k):
+        log.append(("walk", None))
+        return real_walk(*a, **k)
+
+    engine = ScanEngine(scan_db, device="cpu")
+    seqs = scan_reads(scan_db)
+    want = None
+    engine.scan(seqs)
+    want = per_group_hits(engine, seqs)
+    monkeypatch.setattr(ptr, "TRACE_BATCH", 1)
+    monkeypatch.setattr(_build, "library", lambda: None)
+    monkeypatch.setattr(ptr, "_on_card", lambda dev: True)
+    monkeypatch.setattr(ptr, "launch_trace", mirror_launch)
+    monkeypatch.setattr(ptr, "walk", logged_walk)
+    monkeypatch.setattr(ptr, "trace_dp", None)  # never called
+    ptr.LAUNCHES["traceback"] = 0
+    waits = ptr.HOST_WAITS["pass2"]
+    hits_ = engine.scan(seqs)
+    groups = engine.trace_groups(engine.last_survivors)
+    chunks_ = sum(len(items) for items in groups.values())
+    assert chunks_ > len(groups)  # some group has two chunks
+    assert ptr.LAUNCHES["traceback"] == chunks_
+    assert ptr.HOST_WAITS["pass2"] == waits + 1
+    kinds = [k for k, _ in log]
+    assert kinds == ["launch"] * chunks_ + ["walk"] * len(hits_)
+    offsets = [o for k, o in log if k == "launch"]
+    assert offsets == sorted(set(offsets))  # disjoint, in order
+    got = sorted(((h.seq_idx, h.profile_idx, h.path, h.match)
+                  for h in hits_), key=lambda x: x[:2])
+    assert got == want
+
+
+def test_chunk_bytes_count_the_packed_chunk():
+    """``_chunk_bytes``, known before a block is built (ntab from the
+    read class), is what a queued chunk holds on its device: its packed
+    inputs and its outputs, for base-4 and extended tables."""
+    for case in ("flags", "base6"):
+        profs, pps, reads, codes = hits(case)
+        encs = [encode_extended(r)[0] for r in reads]
+        codes = codes or None
+        ((H, Hp, L, K, ntab),) = ptr.chunk_shapes(pps, encs, None, codes)
+        ((_, block, eidx, lens),) = ptr.chunks(pps, encs, None, codes)
+        pk = ptr.pack_trace(block, eidx, lens, True, False, "cpu")
+        assert (Hp, ntab, K) == tuple(pk.fmT.shape) and L == int(lens.max())
+        held = sum(x.numel() * x.element_size() for x in pk[:5])
+        assert ptr._chunk_bytes(Hp, L, K, ntab) == held + ptr._layout(
+            L, Hp, K)[1]
+
+
+def test_trace_scan_waits_once_per_window(scan_db, monkeypatch):
+    """With QUEUE_BYTES below a chunk's bytes every chunk is a window of
+    its own: trace_scan's kernel branch (kernel_mirror in the kernel's
+    place, on the CPU) launches it, waits once, walks its hits, and the
+    next window reuses the buffer from byte 0; the hits equal the
+    per-group path's.  The plain branch gives the same hits with the
+    same waits."""
+    from deciphon_tpu_torch.ops import _build
+    from deciphon_tpu_torch.ops.scan_engine import ScanEngine
+
+    log = []
+
+    def mirror_launch(pk, out=None):
+        ys = kernel_mirror(pk, ptr.trace_plan(pk.fmT.shape[2]))
+        raw = out.buf.numpy()
+        for k, (off, dt, shape) in out.views.items():
+            b = np.ascontiguousarray(ys[k], dtype=dt).view(np.uint8)
+            raw[off:off + b.size] = b.ravel()
+        log.append(("launch", out.views["bpM"][0]))
+        return out
+
+    real_walk = ptr.walk
+
+    def logged_walk(*a, **k):
+        log.append(("walk", None))
+        return real_walk(*a, **k)
+
+    engine = ScanEngine(scan_db, device="cpu")
+    seqs = scan_reads(scan_db)
+    engine.scan(seqs)
+    want = per_group_hits(engine, seqs)
+    groups = engine.trace_groups(engine.last_survivors)
+    sizes = [len(items) for items in groups.values()]
+    monkeypatch.setattr(ptr, "QUEUE_BYTES", 1)
+    monkeypatch.setattr(ptr, "walk", logged_walk)
+    for card in (False, True):
+        if card:
+            monkeypatch.setattr(_build, "library", lambda: None)
+            monkeypatch.setattr(ptr, "_on_card", lambda dev: True)
+            monkeypatch.setattr(ptr, "launch_trace", mirror_launch)
+            monkeypatch.setattr(ptr, "trace_dp", None)  # never called
+        log.clear()
+        waits = ptr.HOST_WAITS["pass2"]
+        hits_ = engine.scan(seqs)
+        assert ptr.HOST_WAITS["pass2"] == waits + len(sizes)
+        got = sorted(((h.seq_idx, h.profile_idx, h.path, h.match)
+                      for h in hits_), key=lambda x: x[:2])
+        assert got == want
+        if card:
+            assert log == [e for n in sizes
+                           for e in [("launch", 0)] + [("walk", None)] * n]
