@@ -60,6 +60,21 @@ Phases, each fatal on failure:
      bytes over 3.35 TB/s and its operations over the card's rates (see
      `bound`); the ACGT class under Viterbi also prints one line per
      block (width, profiles, launch plan, ms, share of its bound);
+ 3b. the cold start, on phase 3's DB and reads: per algorithm a fresh
+     process (--cold-worker) with ScanEngine.warmup and one without,
+     each printing host-clock seconds of import torch, the package,
+     TensorDB.load, the CUDA context, the kernel library (with
+     BUILD_SECONDS, 0 as the build is reused), the warmup's tables and
+     launches, and the first and second scans, and the host seconds of
+     each call of the pass-1 entry point (where CUDA's lazy loading
+     loads an instantiation at its first launch); the warmup must launch
+     the semiring's kernel once per block, and the first scan's calls
+     after it must take no more than the second scan's plus
+     LOAD_MARGIN_S.  The CLI scan without its warmup (--cli-nowarm) must
+     write phase 3's warmed products byte for byte.  A fresh daemon
+     (--cold-daemon) runs one scan job of a DB pressed by another
+     process: job and spool seconds, and whether the warmup started
+     during the spool ended inside it;
   4. the profile-sharded engine on the same DB and reads: a mesh over
      every visible card, or on one card ["cuda:0"] * 4 as 2 read shards x
      2 profile shards.  Viterbi and forward scans and best hits: every
@@ -94,9 +109,9 @@ Phases, each fatal on failure:
      device's idle share of the traced window are printed.
 The last two lines are the card line and a JSON {"ok": true, ...}; the
 line before them is the JSON kernel table, which lists per kernel the
-launches of each path (scan, sharded, daemon, distributed, traced)
-beside phase 3's; the traceback row's launches, times and bound are
-those of phase 3's two scans.
+launches of each path (scan, sharded, daemon, distributed, traced,
+cold: phase 3b's processes) beside phase 3's; the traceback row's
+launches, times and bound are those of phase 3's two scans.
 """
 
 from __future__ import annotations
@@ -207,8 +222,16 @@ TRACE_H1_K = 385  # the cell of one hit
 # the dD comparison; E's two slots (M and D).  The specials are per (hit,
 # position), not per node, and are left out as in MAX_OPS.
 TRACE_OPS = (40 + 19) + (20 + 9) + 6 + 2
-# the paths of phases 3-7, in the kernel table's "paths"
-PATHS = ("scan", "sharded", "daemon", "distributed", "traced")
+# the paths of phases 3-7 and 3b, in the kernel table's "paths"
+PATHS = ("scan", "sharded", "daemon", "distributed", "traced", "cold")
+# phase 3b: how much longer the first scan's pass-1 launch calls may take
+# than the second's after the warmup (host clock).  CUDA loads the kernel
+# library's module at the first launch into it (3-15 ms on an H100
+# machine) and each further instantiation at its own first launch (0.04-
+# 0.85 ms); warm calls take 0.01-0.08 ms, and the 39 calls of a scan
+# spread by under 0.5 ms between scans.  The margin catches the module
+# load or about ten missed instantiations, not one.
+LOAD_MARGIN_S = 2e-3
 NPROCS = 2  # phase 6's worker processes
 TRACE_READS = 32  # phase 7's traced scan
 # phase 7's standard DB: profiles and their state counts, and reads
@@ -724,21 +747,33 @@ def consensus_dna(prof) -> str:
     )
 
 
-def cli(*args) -> str:
-    """Run the port's CLI in a subprocess; its stdout."""
+def cli(*args, warm: bool = True) -> str:
+    """Run the port's CLI in a subprocess; its stdout.  ``warm=False``
+    runs it through ``cli_nowarm`` (--cli-nowarm), with the engine's
+    warmup a no-op."""
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "deciphon_tpu_torch.cli.main", *args],
-        capture_output=True, text=True,
-    )
+    cmd = ([sys.executable, "-m", "deciphon_tpu_torch.cli.main"] if warm
+           else [sys.executable, os.path.abspath(__file__), "--cli-nowarm"])
+    proc = subprocess.run([*cmd, *args], capture_output=True, text=True)
     if proc.returncode != 0:
         raise SystemExit(
             f"cli {args[0]} failed ({proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
-    print(f"cli {args[0]}: {time.perf_counter() - t0:.1f} s: "
+    print(f"cli {args[0]}{'' if warm else ' (no warmup)'}: "
+          f"{time.perf_counter() - t0:.4f} s (host clock): "
           f"{proc.stdout.strip().splitlines()[-1]}")
     return proc.stdout
+
+
+def cli_nowarm(args: list[str]) -> int:
+    """The port's CLI with ScanEngine.warmup a no-op (--cli-nowarm): the
+    cold start as it was before the CLI warmed its first batch."""
+    from deciphon_tpu_torch.cli.main import main as cli_main
+    from deciphon_tpu_torch.ops.scan_engine import ScanEngine
+
+    ScanEngine.warmup = lambda self, nseqs, max_len: 0.0
+    return cli_main(args)
 
 
 def timed_ms(fn, reps: int = 1) -> float:
@@ -1205,9 +1240,8 @@ def warm_worker(tree: str, dtp: str, fasta: str) -> int:
     if not deciphon_tpu_torch.__file__.startswith(os.path.abspath(tree)):
         raise SystemExit(
             f"warm worker: imported {deciphon_tpu_torch.__file__}")
-    lines = open(fasta).read().split()
-    seqs = [SeqRecord(i + 1, n[1:], r)
-            for i, (n, r) in enumerate(zip(lines[::2], lines[1::2]))]
+    seqs = [SeqRecord(i + 1, n, r)
+            for i, (n, r) in enumerate(read_records(fasta))]
     db = TensorDB.load(dtp)
     out = {}
     for algo in ALGO.values():
@@ -1258,6 +1292,276 @@ def phase_warm_compare(workdir: str, parent: str) -> None:
                                if "parts" in r else ""))
 
 
+def read_records(fasta: str) -> list[tuple[str, str]]:
+    """(name, read) of each record of a FASTA written by
+    ``main_path_inputs`` (one line a read)."""
+    lines = open(fasta).read().split()
+    return [(n[1:], r) for n, r in zip(lines[::2], lines[1::2])]
+
+
+def cold_worker(dtp: str, fasta: str, algo: str, warm: str,
+                device: str) -> int:
+    """One cold start (--cold-worker), in a fresh process: host-clock
+    seconds of importing torch and the package, TensorDB.load, on a card
+    the CUDA context and the kernel library (built by the parent, so
+    loaded), with ``warm == "1"`` the warmup split into the tables
+    (``Tables.prepare``) and its launches (``warmup``, which then finds
+    them built), and two scans of the FASTA's reads, the card synced after
+    each step.  On a card the engine's pass-1 entry point
+    (``dcp_viterbi_max`` or ``dcp_viterbi_lse``) is timed on the host
+    clock at every call: a kernel instantiation's first launch loads it
+    there (CUDA's lazy module loading), so these are the seconds a scan
+    pays for instantiations that nothing launched before.  Prints one
+    JSON line: the seconds, the warmup's launches, each call's seconds
+    in the warmup and in each scan, each scan's ``last_timings`` and
+    the run's launches."""
+    t, t0 = {}, time.perf_counter()
+    import torch
+
+    t["import torch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from deciphon_tpu_torch.db.format import TensorDB
+    from deciphon_tpu_torch.ops import _build
+    from deciphon_tpu_torch.ops import viterbi_cuda as vc
+    from deciphon_tpu_torch.ops import viterbi_trace as vtr
+    from deciphon_tpu_torch.ops.scan_engine import (
+        ScanEngine, ScanParams, SeqRecord,
+    )
+
+    t["import package"] = time.perf_counter() - t0
+
+    dev = torch.device(device)
+    card = dev.type == "cuda"
+
+    def step(name, fn):  # every step before it has synced
+        t0 = time.perf_counter()
+        out = fn()
+        if card:
+            torch.cuda.synchronize()
+        t[name] = time.perf_counter() - t0
+        return out
+
+    t0 = time.perf_counter()
+    db = TensorDB.load(dtp)  # host only: no sync, which would start CUDA
+    t["TensorDB.load"] = time.perf_counter() - t0
+    if card:
+        step("CUDA context", lambda: torch.zeros(1, device=dev))
+        step("kernel library", _build.library)
+    seqs = [SeqRecord(i + 1, n, r)
+            for i, (n, r) in enumerate(read_records(fasta))]
+    params = ScanParams(algo=algo)
+    engine = ScanEngine(db, params, device=dev)
+    calls = []  # host seconds of each call of the pass-1 entry point
+    if card:
+        lib = _build.library()
+        entry = ("dcp_viterbi_max" if params.semiring == "max"
+                 else "dcp_viterbi_lse")
+        real = getattr(lib, entry)
+
+        def timed(*a):
+            t0 = time.perf_counter()
+            rc = real(*a)
+            calls.append(time.perf_counter() - t0)
+            return rc
+
+        setattr(lib, entry, timed)
+    out = dict(blocks=len(engine.blocks), build_s=_build.BUILD_SECONDS,
+               launch_s={})
+    if warm == "1":
+        step("warmup tables", engine.tables.prepare)
+        step("warmup launches", lambda: engine.warmup(
+            len(seqs), max(len(q.data) for q in seqs)))
+        out["warm_launches"] = dict(vc.LAUNCHES)
+        out["launch_s"]["warmup"] = calls[:]
+    phases = []
+    for name in ("first", "second"):
+        del calls[:]
+        hits = step(f"{name} scan", lambda: engine.scan(seqs))
+        phases.append(engine.last_timings)
+        out["launch_s"][name] = calls[:]
+    out.update(t=t, phases=phases, hits=len(hits),
+               launches=dict(vc.LAUNCHES),
+               trace_launches=vtr.LAUNCHES[TRACE_NAME])
+    print(json.dumps(out))
+    return 0
+
+
+def cold_daemon(dtp: str, fasta: str, workdir: str, device: str) -> int:
+    """A fresh daemon (--cold-daemon): Server(device=device) in this new
+    process, against a localhost FakeScheduler holding the .dtp pressed
+    by another process (so no press prewarm ran) and one scan job of the
+    FASTA's reads.  Prints one JSON line: the job's seconds, the spool's
+    (from the first read asked of the scheduler to the last), each
+    warmup's thread and start and end (seconds from the job's start),
+    the job's state and product rows, and its launches."""
+    import threading
+
+    import torch
+
+    from deciphon_tpu_torch.ops import scan_engine as pse
+    from deciphon_tpu_torch.ops import viterbi_cuda as vc
+    from deciphon_tpu_torch.ops import viterbi_trace as vtr
+    from deciphon_tpu_torch.server.daemon import Server
+    from deciphon_tpu_torch.server.fake_sched import FakeScheduler
+    from deciphon_tpu_torch.utils.config import ServerConfig
+
+    fake = FakeScheduler(spool_dir=os.path.join(workdir, "cold_sched"))
+    url = fake.serve()
+    try:
+        with open(dtp, "rb") as fp:
+            db = fake.add_db(os.path.basename(dtp), fp.read())
+        scan = fake.add_scan(db.id, read_records(fasta))
+        server = Server(ServerConfig(
+            cache_dir=os.path.join(workdir, "cold_daemon"), api_url=url,
+            single_run=True), device=device)
+        t0, spool, warms = time.perf_counter(), [], []
+        real_iter = server.api.iter_scan_seqs
+
+        def iter_scan_seqs(scan_id):
+            spool.append(time.perf_counter() - t0)
+            yield from real_iter(scan_id)
+            spool.append(time.perf_counter() - t0)
+
+        real_warmup = pse.ScanEngine.warmup
+
+        def warmup(self, nseqs, max_len):
+            start = time.perf_counter() - t0
+            real_warmup(self, nseqs, max_len)
+            warms.append((threading.current_thread().name, nseqs, max_len,
+                          start, time.perf_counter() - t0))
+
+        server.api.iter_scan_seqs = iter_scan_seqs
+        pse.ScanEngine.warmup = warmup
+        ran = server.run_one()
+        if server.device.type == "cuda":
+            torch.cuda.synchronize()
+        job = fake.jobs[scan.job_id]
+        print(json.dumps(dict(
+            ran=ran, job_s=time.perf_counter() - t0, state=job.state,
+            error=job.error, spool=spool, warmups=warms,
+            rows=len(fake.products[-1].splitlines()) - 1
+            if fake.products else 0,
+            launches=dict(vc.LAUNCHES),
+            trace_launches=vtr.LAUNCHES[TRACE_NAME])))
+    finally:
+        fake.shutdown()
+    return 0
+
+
+def run_json(*args) -> dict:
+    """This script in a fresh process with ``args``: its last stdout
+    line, a JSON object, with the process's wall seconds (host clock,
+    interpreter start-up included) under "wall_s"."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), *args],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"{args[0]} failed ({proc.returncode}):\n"
+                         f"{proc.stderr[-4000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def phase_cold_start(ctx, workdir: str, dev) -> dict:
+    """Phase 3b: the cold start, on phase 3's DB and reads.  Per
+    algorithm a fresh process with the warmup and one without
+    (``cold_worker``), each step on the host clock; the warmup must
+    launch the semiring's kernel once per block and no other, and the
+    pass-1 entry point's calls in the first scan after it must take no
+    more than in the second plus LOAD_MARGIN_S (the run without the
+    warmup prints the same sums: its first scan loads every
+    instantiation).  Then
+    the CLI without its warmup (``cli_nowarm``): its products must equal
+    phase 3's warmed CLI's byte for byte.  Then a fresh daemon's scan job
+    (``cold_daemon``): job and spool seconds, whether the warmup begun
+    during the spool ended inside it, rows equal in number to phase 3's
+    hits.  Returns the launches of these runs, per semiring and under
+    TRACE_NAME."""
+    launches = dict.fromkeys((*TOL, TRACE_NAME), 0)
+    for semiring in TOL:
+        algo = ALGO[semiring]
+        for warm in ("1", "0"):
+            rec = run_json("--cold-worker", ctx["dtp"], ctx["fasta"], algo,
+                           warm, dev.type)
+            for k, n in rec["launches"].items():
+                launches[k] += n
+            launches[TRACE_NAME] += rec["trace_launches"]
+            steps = ", ".join(f"{k} {v:.4f} s" for k, v in rec["t"].items())
+            phases = "; ".join(
+                f"{n} scan pass 1 {p['pass1']:.4f} s, gate {p['gate']:.4f} "
+                f"s, pass 2 {p['pass2']:.4f} s"
+                for n, p in zip(("first", "second"), rec["phases"]))
+            how = "warmup" if warm == "1" else "no warmup"
+            total = sum(rec["t"].values())
+            print(f"cold start {algo}, {how} (fresh process, host clock, "
+                  f"the card synced after each step): {steps}; steps "
+                  f"{total:.4f} s of the process's {rec['wall_s']:.4f} s; "
+                  f"{phases}; "
+                  f"BUILD_SECONDS {rec['build_s']:.4f}; {rec['hits']} hits; "
+                  f"launches {rec['launches']}")
+            calls = rec["launch_s"]
+            print(f"cold start {algo}, {how}: pass-1 entry point calls "
+                  "(host clock): " + "; ".join(
+                      f"{k} {len(v)} calls {sum(v) * 1e3:.4f} ms, slowest "
+                      f"{max(v, default=0) * 1e3:.4f} ms"
+                      for k, v in calls.items()))
+            if warm == "0":
+                continue
+            got = rec["warm_launches"]
+            other = sum(n for k, n in got.items() if k != semiring)
+            if got[semiring] != rec["blocks"] or other:
+                raise SystemExit(f"cold start {algo}: warmup launches {got},"
+                                 f" want {rec['blocks']} {semiring} (one a "
+                                 "block)")
+            extra = sum(calls["first"]) - sum(calls["second"])
+            if extra > LOAD_MARGIN_S:
+                raise SystemExit(f"cold start {algo}: the first scan's "
+                                 f"launch calls took {extra * 1e3:.4f} ms "
+                                 "over the second's, more than "
+                                 f"{LOAD_MARGIN_S * 1e3:.1f} ms: the warmup "
+                                 "left instantiations to load")
+            print(f"cold start {algo}: warmup {got[semiring]} "
+                  f"{KERNEL_NAME[semiring]} launches = {rec['blocks']} "
+                  f"blocks; the first scan's launch calls "
+                  f"{extra * 1e3:+.4f} ms against the second's (limit "
+                  f"{LOAD_MARGIN_S * 1e3:.1f} ms)")
+
+        tsv = os.path.join(workdir, f"prods_{algo}.tsv")
+        cold_tsv = os.path.join(workdir, f"prods_{algo}_nowarm.tsv")
+        cli("scan", ctx["dtp"], ctx["fasta"], "-o", cold_tsv, "--device",
+            dev.type, *(["--forward"] if algo == "forward" else []),
+            warm=False)
+        with open(tsv, "rb") as a, open(cold_tsv, "rb") as b:
+            if a.read() != b.read():
+                raise SystemExit(f"cli scan {algo}: products with and "
+                                 "without the warmup differ")
+        print(f"cli scan {algo}: products with and without the warmup equal "
+              "byte for byte")
+
+    rec = run_json("--cold-daemon", ctx["dtp"], ctx["fasta"], workdir,
+                   dev.type)
+    if not rec["ran"] or rec["state"] != "done":
+        raise SystemExit(f"cold daemon: job {rec['state']}: {rec['error']}")
+    if rec["rows"] != len(ctx["hits"]) or len(rec["warmups"]) != 2:
+        raise SystemExit(f"cold daemon: {rec['rows']} rows (want "
+                         f"{len(ctx['hits'])}), warmups {rec['warmups']}")
+    for k, n in rec["launches"].items():
+        launches[k] += n
+    launches[TRACE_NAME] += rec["trace_launches"]
+    (t1, n1, l1, s1, e1), (t2, n2, l2, s2, e2) = rec["warmups"]
+    s0, s_end = rec["spool"]
+    print(f"cold daemon (fresh process of {rec['wall_s']:.4f} s, host "
+          f"clock): scan job {rec['job_s']:.4f} s, {rec['rows']} rows; spool "
+          f"{s_end - s0:.4f}"
+          f" s ({s0:.4f}-{s_end:.4f} s into the job); warmup on {t1} "
+          f"({n1} reads, {l1} nt) {s1:.4f}-{e1:.4f} s, "
+          f"{'inside' if e1 <= s_end else 'not inside'} the spool; top-up "
+          f"on {t2} ({n2} reads, {l2} nt) {s2:.4f}-{e2:.4f} s; launches "
+          f"{rec['launches']}, {rec['trace_launches']} {TRACE_NAME}")
+    return launches
+
+
 def phase_main_path(dev, workdir: str, clock: float):
     """(per semiring: launches, max_abs_err, ms, plain_ms, bound_ms,
     bound_by of the main path; the context phases 4 and 5 compare
@@ -1275,7 +1579,7 @@ def phase_main_path(dev, workdir: str, clock: float):
     cells = 3 * sum(map(len, reads)) * nodes
     out = {}
     ctx = dict(db=db, seqs=seqs, planted=planted, hmm=hmm, dtp=dtp,
-               cells=cells, scores={}, warm={})
+               fasta=fasta, cells=cells, scores={}, warm={})
     for semiring in TOL:
         algo = ALGO[semiring]
         print(f"--- main path, {algo} ({semiring}) ---")
@@ -1290,7 +1594,7 @@ def phase_main_path(dev, workdir: str, clock: float):
         # the same path in process: launches, pass-1 cells, timings
         engine = ScanEngine(db, ScanParams(algo=algo), device=dev)
         t0 = time.perf_counter()
-        engine.prepare()
+        engine.tables.prepare()
         torch.cuda.synchronize()
         print(f"engine: {len(engine.blocks)} blocks, base-4 tables built in "
               f"{time.perf_counter() - t0:.2f} s")
@@ -1473,7 +1777,7 @@ def phase_sharded(ctx) -> dict:
         algo = ALGO[semiring]
         engine = ScanEngine(db, ScanParams(algo=algo), mesh=mesh)
         t0 = time.perf_counter()
-        engine.prepare()
+        engine.tables.prepare()
         torch.cuda.synchronize()
         ntiles = sum(len(b.tiles) for b in engine.blocks)
         print(f"sharded {algo}: {len(engine.blocks)} blocks, {ntiles} tiles, "
@@ -1846,7 +2150,7 @@ def phase_trace(ctx, dev, workdir: str) -> tuple[int, int, str]:
     chosen = [seqs[hit - 1]] + [s for s in acgt if s.seq_id not in planted][
         :TRACE_READS - 1]
     engine = ScanEngine(db, device=dev)
-    engine.prepare()
+    engine.tables.prepare()
     engine.scan(chosen)  # warm
     torch.cuda.synchronize()
     outdir = os.path.join(workdir, "profile")
@@ -1915,6 +2219,12 @@ def main(argv: list[str]) -> int:
         return dist_worker(*argv[1:])  # one rank of phase 6
     if argv[:1] == ["--warm-worker"] and len(argv) == 4:
         return warm_worker(*argv[1:])  # one turn of the warm compare
+    if argv[:1] == ["--cold-worker"] and len(argv) == 6:
+        return cold_worker(*argv[1:])  # one run of phase 3b
+    if argv[:1] == ["--cold-daemon"] and len(argv) == 5:
+        return cold_daemon(*argv[1:])  # phase 3b's daemon
+    if argv[:1] == ["--cli-nowarm"]:
+        return cli_nowarm(argv[1:])  # phase 3b's CLI without its warmup
     import torch
 
     menu_only = argv == ["--menu-only"]
@@ -1970,6 +2280,8 @@ def main(argv: list[str]) -> int:
     try:
         main_path, ctx = phase_main_path(dev, workdir, clock)
         print(f"main path done at {time.perf_counter() - t_start:.1f} s")
+        cold = phase_cold_start(ctx, workdir, dev)
+        print(f"cold start done at {time.perf_counter() - t_start:.1f} s")
         sharded = phase_sharded(ctx)
         print(f"sharded done at {time.perf_counter() - t_start:.1f} s")
         daemon = phase_daemon(ctx, workdir)
@@ -1995,6 +2307,7 @@ def main(argv: list[str]) -> int:
         per_path = dict(zip(PATHS, (
             rec["launches"], sharded[semiring], daemon[semiring],
             distributed if viterbi else 0, traced if viterbi else 0,
+            cold[semiring],
         )))
         kernels.append({
             "name": KERNEL_NAME[semiring], "route": "cuda",
@@ -2010,7 +2323,7 @@ def main(argv: list[str]) -> int:
     t_bound, t_by = bound(t_bytes, t_cells, "trace", clock)
     per_path = dict(zip(PATHS, (
         sum(r["launches"] for r in tr), sharded[TRACE_NAME],
-        daemon[TRACE_NAME], 0, traced_tb,
+        daemon[TRACE_NAME], 0, traced_tb, cold[TRACE_NAME],
     )))
     kernels.append({
         "name": TRACE_NAME, "route": "cuda", "source": TRACE_SOURCE,

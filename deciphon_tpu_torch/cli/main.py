@@ -113,10 +113,16 @@ def cmd_scan(args) -> int:
     # bounded batches, as the reference streams the FASTA
     writer = ProdWriter(scan_id=0)
     nhits = nseqs = 0
+    warmed = False
     batch: list[SeqRecord] = []
 
     def flush(batch):
-        nonlocal nhits
+        nonlocal nhits, warmed
+        if not warmed:
+            # library, tables and each block's first launch, at this
+            # batch's shapes, before the first scan (scan_engine.warmup)
+            engine.warmup(len(batch), max(len(r.data) for r in batch))
+            warmed = True
         if args.best_hit:
             # one row per read: the device-side argmax reduction; no
             # traceback, so no match column

@@ -18,7 +18,14 @@ passes:
     before one host wait, and plain torch on the CPU), decoded into
     match strings by the codec.
     Under forward the hits carry forward logliks and the Viterbi path,
-    as in the reference (scan_engine.py:58-63).
+    as in the reference (scan_engine.py:58-63).  ``traceback="oracle"``
+    runs the f64 numpy oracle per hit instead.
+
+``warmup`` runs pass 1 once per block on a dummy batch of a scan's
+shapes (scan_engine.py:492-616), so that the first scan finds the
+kernel library, the base-4 tables, each kernel instantiation and the
+allocator's buffers ready; the CLI calls it on its first batch and the
+daemon while it spools a job's reads.
 
 ``best_hits`` runs pass 1 only and reduces each launch's [rows, B]
 scores to each read's best profile on the device, so the host pulls
@@ -56,9 +63,14 @@ from deciphon_tpu_torch.db.partition import pack_profile_rows
 from deciphon_tpu_torch.models import codec
 from deciphon_tpu_torch.models.alphabet import encode_extended
 from deciphon_tpu_torch.ops import viterbi_cuda as vc
+from deciphon_tpu_torch.ops import viterbi_ref as vr
 from deciphon_tpu_torch.ops import viterbi_trace as vtr
 from deciphon_tpu_torch.ops.emissions import fragment_indices
-from deciphon_tpu_torch.ops.viterbi_torch import NEG, end_fragment_indices
+from deciphon_tpu_torch.ops.viterbi_torch import (
+    NEG,
+    end_fragment_indices,
+    resolve_device,
+)
 from deciphon_tpu_torch.parallel.mesh import ScanMesh
 from deciphon_tpu_torch.parallel.sharded_scan import (
     Tile,
@@ -116,20 +128,6 @@ class BestHit:
     alt_loglik: float
     null_loglik: float
     lrt: float
-
-
-def resolve_device(device) -> torch.device:
-    """The named device; asking for CUDA without a usable GPU raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {device!r} requested but torch.cuda.is_available()"
-                " is False (pass device='cpu' to run on the CPU)"
-            )
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 @dataclass
@@ -202,17 +200,30 @@ class Tables:
         return time.perf_counter() - t0
 
 
+TRACEBACKS = ("batch", "oracle")
+
+
 class ScanEngine:
-    """Scans reads against a TensorDB on one device or a mesh."""
+    """Scans reads against a TensorDB on one device or a mesh.
+
+    ``traceback`` picks pass 2: "batch" (``viterbi_trace.trace_scan``,
+    the traceback kernel on a card) or "oracle" (the f64 numpy
+    ``viterbi_ref.viterbi_alt`` per hit, on the host), as the JAX
+    engine's "jax" and "oracle" (scan_engine.py:962-974).  "oracle" is
+    a test and reference mode: the CLI and the daemon run "batch"."""
 
     def __init__(self, db: TensorDB, params: ScanParams = ScanParams(),
                  device="cuda", progress=None, mesh: ScanMesh | None = None,
-                 subset=None, tables: Tables | None = None):
+                 subset=None, tables: Tables | None = None,
+                 traceback: str = "batch"):
         params.semiring  # ValueError on an unknown algo
+        if traceback not in TRACEBACKS:
+            raise ValueError(f"unknown traceback {traceback!r}")
         self.tables = tables or Tables(db, device, mesh, subset)
         self.db = db
         self.params = params
         self.progress = progress
+        self.traceback = traceback
         self.device = self.tables.device
         self.mesh = self.tables.mesh
         self.blocks = self.tables.blocks
@@ -227,6 +238,8 @@ class ScanEngine:
         self.last_timings: dict = {}
         # the last scan's LRT survivors, as trace_groups takes them
         self.last_survivors: list = []
+        # overlapping warmups run one after the other
+        self._warm_lock = threading.Lock()
 
     def packed(self, blk: Block, codes: tuple = ()) -> vc.CudaBlock:
         """An unsharded engine's kernel-layout tables of ``blk``: the
@@ -236,10 +249,37 @@ class ScanEngine:
         (tile,) = self.tables.tiles(blk, codes)
         return tile.blk
 
-    def prepare(self) -> float:
-        """Build every block's base-4 tables (the scan's set-up, and the
-        counterpart of the JAX engine's warmup); seconds spent."""
-        return self.tables.prepare()
+    def warmup(self, nseqs: int, max_len: int) -> float:
+        """Run pass 1 once on a dummy batch of the shapes a scan of
+        ``nseqs`` ACGT reads up to ``max_len`` nt gives ``host_batch``,
+        the counterpart of the JAX engine's warmup (scan_engine.py:492):
+        the kernel library loaded (or built) on a card, every block's
+        base-4 tables, and through ``_queue_block`` one launch of the
+        semiring's kernel per block (per tile on a mesh) on eidx
+        [nseqs, max_len, 5] of symbol 0 with every read 1 nt long, so
+        each launch loads its kernel instantiation and allocates the
+        scan's output and batch buffers at full size while computing one
+        position; then the outputs' pull, one sync per device.  On the
+        CPU the same path runs the plain version.  Leaves ``last_*``,
+        ``progress`` and the trace counters as they were; overlapping
+        warmups run one after the other.  Seconds spent."""
+        with self._warm_lock:
+            t0 = time.perf_counter()
+            if self.device.type == "cuda":
+                from deciphon_tpu_torch.ops import _build
+
+                _build.library()
+            self.tables.prepare()
+            nshards = self.mesh.seqs if self.mesh is not None else 1
+            eidx = np.zeros((nseqs, max(1, max_len), 5), np.int32)
+            batch = _ShardedBatch(eidx, np.ones(nseqs, np.int32),
+                                  seq_shards(np.arange(nseqs), nshards))
+            pieces = []
+            for blk in self.blocks:
+                pieces.extend(self._queue_block(
+                    blk, (), np.arange(nseqs), batch, reduce=False))
+            self._pull(pieces)
+            return time.perf_counter() - t0
 
     def encode(self, seqs: Sequence[SeqRecord]):
         """(encoded reads, {codes: [read indices]}): each read's symbols
@@ -442,16 +482,26 @@ class ScanEngine:
         """Pass 2, batched by (padded width, read class) and queued as one
         scan (viterbi_trace.trace_scan): on a card one launch of the
         traceback kernel per chunk of TRACE_BATCH hits of a group, every
-        chunk queued before the host waits once."""
+        chunk queued before the host waits once.  Under the "oracle"
+        traceback, the f64 oracle per hit instead."""
+        p = self.params
         groups = list(self.trace_groups(survivors).items())
         profs = [[self.db.profile(gi) for _, gi, *_ in items]
                  for _, items in groups]
-        results = vtr.trace_scan(
-            [(ps, [encoded[si] for si, *_ in items], kpad, codes)
-             for ((kpad, codes), items), ps in zip(groups, profs)],
-            multi_hits=self.params.multi_hits,
-            hmmer3_compat=self.params.hmmer3_compat, device=self.device,
-        )
+        if self.traceback == "oracle":
+            results = [
+                [vr.viterbi_alt(prof, encoded[si], p.multi_hits,
+                                p.hmmer3_compat, codes=codes)
+                 for (si, _, codes, *_), prof in zip(items, ps)]
+                for (_, items), ps in zip(groups, profs)
+            ]
+        else:
+            results = vtr.trace_scan(
+                [(ps, [encoded[si] for si, *_ in items], kpad, codes)
+                 for ((kpad, codes), items), ps in zip(groups, profs)],
+                multi_hits=p.multi_hits, hmmer3_compat=p.hmmer3_compat,
+                device=self.device,
+            )
         hits: list[Hit] = []
         for (_, items), ps, res_g in zip(groups, profs, results):
             for (si, gi, _, alt, null, lrt), prof, res in zip(

@@ -4,7 +4,8 @@ The counterpart of deciphon_tpu/ops/viterbi_jax.py: the numpy block
 constructor (``build_profile_block`` :66), the end-fragment index table
 (``end_fragment_indices`` :119) and the length-dependent special
 transitions (``_specials`` :136), re-implemented here because the JAX
-module imports jax at load time.
+module imports jax at load time; and ``resolve_device``, which every
+entry point of the port calls on the device it is given.
 
 The recurrence itself lives once, in ops/viterbi_cuda.py (``scores_plain``
 and the CUDA kernel behind ``scores``); ``viterbi_scores`` below keeps the
@@ -45,6 +46,20 @@ class ProfileBlock(NamedTuple):
 
 
 TRANS_NAMES = ("entry", "mm_in", "im_in", "dm_in", "md_in", "dd_in", "mi", "ii")
+
+
+def resolve_device(device) -> torch.device:
+    """The named device; asking for CUDA without a usable GPU raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested but torch.cuda.is_available()"
+                " is False (pass device='cpu' to run on the CPU)"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
 
 
 def _clamp(a, dtype=np.float32) -> np.ndarray:
@@ -90,10 +105,10 @@ def end_fragment_indices(fidx: np.ndarray, base: int = 4) -> np.ndarray:
     eidx[i-1, l-1] = index of seq[i-l : i] (from the start-indexed table
     of ops/emissions.fragment_indices), or the NEG sentinel row (the
     last row of the base's table) when the fragment would start before
-    position 0."""
+    position 0 (every length-l entry, where Lp < l)."""
     Lp = fidx.shape[0]
     out = np.full((Lp, 5), frag_layout(base)[1], dtype=np.int32)
-    for l in range(1, 6):
+    for l in range(1, min(Lp, 5) + 1):
         out[l - 1 :, l - 1] = fidx[: Lp - l + 1, l - 1]
     return out
 

@@ -8,7 +8,9 @@ csrc/traceback.cu per chunk of hits (``launch_trace``, the counterpart
 of the jitted ``_trace_scan_batch`` :266; its launch shape per width is
 ``trace_plan``'s); ``trace_dp`` is its plain torch version, which the
 CPU runs.  A scan's pass 2 (``trace_scan``) queues every chunk of every
-group before the host waits, once per QUEUE_BYTES of queued chunks.
+group before the host waits, once per QUEUE_BYTES of queued chunks;
+``viterbi_alt`` traces one hit.  The entry points run on the card unless
+given ``device="cpu"``, and raise without a GPU.
 
 Tie-breaking replicates the reference exactly: candidates flatten in
 (fragment length ascending, origin ascending) order and the first maximum
@@ -36,6 +38,7 @@ from deciphon_tpu_torch.ops.viterbi_torch import (
     ProfileBlock,
     build_profile_block,
     end_fragment_indices,
+    resolve_device,
     specials,
 )
 
@@ -505,7 +508,7 @@ def viterbi_alt_batch(
     multi_hits: bool = True,
     hmmer3_compat: bool = False,
     kpad: int | None = None,
-    device="cpu",
+    device="cuda",
     codes: tuple | None = None,
 ) -> list[vr.ViterbiResult]:
     """Traceback of a stack of (profile, encoded read) hits, one DP per
@@ -516,6 +519,33 @@ def viterbi_alt_batch(
     semiring: a forward scan's hits still decode their best path."""
     return trace_scan([(profs, seqs, kpad, codes)], multi_hits,
                       hmmer3_compat, device)[0]
+
+
+def viterbi_alt(
+    prof,
+    seq_idx: np.ndarray,
+    multi_hits: bool = True,
+    hmmer3_compat: bool = False,
+    block_row: ProfileBlock | None = None,
+    pad_to: int | None = None,
+    base: int = 4,
+    codes: tuple | None = None,
+    device="cuda",
+) -> vr.ViterbiResult:
+    """Traceback of one (profile, encoded read) hit, the counterpart of
+    the JAX package's ``viterbi_alt`` (viterbi_trace.py:333):
+    ``trace_scan`` of one group holding one hit.  ``block_row``, the
+    profile's one-row ProfileBlock if already built, gives the padded
+    width (its tables are built anew, of ``codes``); ``base=5`` is
+    ``codes=("N",)``.  ``pad_to`` pads the read's index rows in the JAX
+    package; the DP stops before them, so here it changes nothing."""
+    if codes is None and base not in (4, 5):
+        raise ValueError(f"base {base}: need 4, 5 or codes")
+    if codes is None and base == 5:
+        codes = ("N",)
+    kpad = None if block_row is None else block_row.fm.shape[1]
+    return trace_scan([([prof], [seq_idx], kpad, codes)], multi_hits,
+                      hmmer3_compat, device)[0][0]
 
 
 def _on_card(dev: torch.device) -> bool:
@@ -563,7 +593,7 @@ def _to_host(buf: torch.Tensor, end: int, streams: list) -> np.ndarray:
 
 def trace_scan(groups: list, multi_hits: bool = True,
                hmmer3_compat: bool = False,
-               device="cpu") -> list[list[vr.ViterbiResult]]:
+               device="cuda") -> list[list[vr.ViterbiResult]]:
     """Pass 2 of a scan: for each group of ``groups``, (profiles, encoded
     reads, kpad, codes), the traceback of its (profile, read) hits, one
     DP per chunk of ``chunks`` and a walk per hit, with one host wait per
@@ -580,7 +610,7 @@ def trace_scan(groups: list, multi_hits: bool = True,
     window's last launch (``_to_host``) is its only wait for the
     kernels.  On the CPU each chunk is ``trace_dp``'s, written into the
     same layout.  The window's walks follow, hit by hit."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     card = _on_card(dev)
     if card:
         from deciphon_tpu_torch.ops import _build

@@ -7,12 +7,15 @@ src/server/scan.c scan workload), with the scan compute on the Hopper
 kernel: one card, or a [seqs, profiles] mesh over every visible GPU
 when there is more than one.
 
-What differs from the JAX daemon: there is no compile cache to warm.
-The press prewarm builds the fresh DB's base-4 tables (and the kernel
-library) on a background thread into the store that the first scan of
-that DB then uses, and every scan joins that thread before it starts,
-so a scan never races the prewarm.  Engines that differ only in
-ScanParams share one table store.
+A scan job warms its engine as the JAX daemon does (daemon.py:246-282):
+``ScanEngine.warmup`` starts on a thread after the first read comes in,
+runs while the rest are spooled, is joined after the spool (its failure
+fails the job) and is topped up at the job's real shapes.  The press
+prewarm builds a fresh DB's base-4 tables (and the kernel library) on a
+background thread into the store that the first scan of that DB then
+uses, and every scan joins that thread before it starts, so a scan
+never races the prewarm.  Engines that differ only in ScanParams share
+one table store.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import signal
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -263,14 +267,24 @@ class Server:
         batch_size = int(os.environ.get("DCP_SCAN_BATCH", 1024))
         best_hit = os.environ.get("DCP_BEST_HIT", "") not in ("", "0")
         nseqs = 0
+        max_len = 1
+        warm = None
         with tempfile.NamedTemporaryFile(
             "w+", suffix=".seqs", delete=True
-        ) as spool:
+        ) as spool, ThreadPoolExecutor(
+            1, thread_name_prefix="scan-warmup"
+        ) as pool:
             for s in self.api.iter_scan_seqs(scan.id):
                 spool.write(json.dumps(
                     {"id": s.id, "name": s.name, "data": s.data}
                 ) + "\n")
                 nseqs += 1
+                max_len = max(max_len, len(s.data))
+                if warm is None:
+                    # warm a full batch at the first read's length while
+                    # the (HTTP-bound) spool goes on; the top-up below
+                    # warms the real shapes
+                    warm = pool.submit(engine.warmup, batch_size, max_len)
             total = nseqs * db.nprofiles
             log.info("%d tasks to run", total)
             progress = Progress(
@@ -280,7 +294,9 @@ class Server:
                 ),
             )
             engine.progress = progress
-            engine.prepare()  # the tables, if no prewarm built them
+            if warm is not None:  # joined here: its failure fails the job
+                log.info("warmup during the spool: %.2fs", warm.result())
+            engine.warmup(min(nseqs, batch_size), max_len)
             writer = ProdWriter(scan_id=scan.id)
             batch: list[SeqRecord] = []
 

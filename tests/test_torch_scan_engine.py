@@ -275,3 +275,18 @@ def test_blocks_cover_db_once(db):
     for b in eng.blocks:
         assert b.kpad % vc.LANE == 0
         assert b.kpad >= int(db.core_sizes[b.chunk].max())
+
+
+@pytest.mark.parametrize("reads", [["ACG"], ["ACG", "T", "ACGT"],
+                                   ["NAC", "ACGN"]])
+def test_batch_of_reads_under_five_nt_matches_jax_engine(db, reads):
+    """A batch whose longest read is shorter than a fragment's 5 nt pads
+    the fragments that would start before the read to the sentinel, as
+    the JAX engine does on its longer padded batch."""
+    got, ref = _both(db, reads, lrt_threshold=-1e9)
+    assert len(got) == len(ref) == len(reads) * db.nprofiles
+    for a, b in zip(got, ref):
+        assert (a.seq_id, a.profile_idx) == (b.seq_id, b.profile_idx)
+        assert a.alt_loglik == pytest.approx(b.alt_loglik, abs=1e-4)
+        assert a.null_loglik == pytest.approx(b.null_loglik, abs=1e-4)
+        assert a.path == b.path and a.match == b.match

@@ -132,7 +132,8 @@ def test_press_job_lifecycle(sched, worker):
 def test_press_prewarm_switch_off(sched, worker, monkeypatch):
     """DCP_PRESS_PREWARM=0 (the JAX daemon's switch): the press job
     builds no table store and starts no thread; the first scan builds
-    the tables itself."""
+    the tables itself, in its warmups (the one during the spool builds
+    them, the top-up after it finds them built)."""
     import threading
 
     from deciphon_tpu_torch.ops.scan_engine import Tables
@@ -159,7 +160,8 @@ def test_press_prewarm_switch_off(sched, worker, monkeypatch):
     scan = fake.add_scan(db_meta.id, [("planted", consensus_dna(db.profile(1)))])
     assert worker.run_one()
     assert fake.jobs[scan.job_id].state == "done"
-    assert len(prepared) == 1 and "press-prewarm" not in started
+    assert len(prepared) == 2 and "press-prewarm" not in started
+    assert all(b.tiles is not None for b in prepared[0].blocks)
     assert db.profile(1).accession in fake.products[-1]
 
 

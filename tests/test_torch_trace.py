@@ -52,7 +52,8 @@ def test_paths_match_jax_batch(mh, h3):
     pprofs = [p for p, _ in cases(psample)]
     profs = [p for p, _ in cs]
     encs = [DNA.encode(s) for _, s in cs]
-    got = ptr.viterbi_alt_batch(pprofs, encs, mh, h3, kpad=8)
+    got = ptr.viterbi_alt_batch(pprofs, encs, mh, h3, kpad=8,
+                                 device="cpu")
     ref = jtr.viterbi_alt_batch(profs, encs, mh, h3, kpad=8, pad_to=LP)
     assert len(got) == len(ref) == len(cs)
     for g, r, (prof, seq), pprof, enc in zip(got, ref, cs, pprofs, encs):
@@ -72,8 +73,8 @@ def test_padding_is_inert():
     cs = cases(psample)[:3]
     profs = [p for p, _ in cs]
     encs = [DNA.encode(s) for _, s in cs]
-    base = ptr.viterbi_alt_batch(profs, encs)
-    padded = ptr.viterbi_alt_batch(profs, encs, kpad=40)
+    base = ptr.viterbi_alt_batch(profs, encs, device="cpu")
+    padded = ptr.viterbi_alt_batch(profs, encs, kpad=40, device="cpu")
     for a, b in zip(base, padded):
         assert a.path == b.path
         assert a.loglik == pytest.approx(b.loglik, abs=1e-4)
@@ -81,7 +82,7 @@ def test_padding_is_inert():
 
 def test_walk_covers_read():
     prof, seq = cases(psample)[1]
-    (res,) = ptr.viterbi_alt_batch([prof], [DNA.encode(seq)])
+    (res,) = ptr.viterbi_alt_batch([prof], [DNA.encode(seq)], device="cpu")
     assert sum(l for _, l in res.path) == len(seq)
 
 
@@ -107,7 +108,8 @@ def test_paths_with_codes_match_jax_batch(codes):
         enc, got = encode_extended(r)
         assert got == codes
         encs.append(enc)
-    got = ptr.viterbi_alt_batch(pprofs, encs, kpad=8, codes=codes)
+    got = ptr.viterbi_alt_batch(pprofs, encs, kpad=8, codes=codes,
+                                 device="cpu")
     ref = jtr.viterbi_alt_batch(profs, encs, kpad=8, pad_to=LP, codes=codes)
     for g, r, prof, pprof, seq, enc in zip(got, ref, profs, pprofs, reads,
                                            encs):

@@ -586,6 +586,8 @@ def test_cuda_build_failure_raises(monkeypatch):
     def no_plain(*a, **k):
         raise AssertionError("trace_dp called on a CUDA device")
 
+    # a machine with a card but no compiler: the device check passes
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(_build, "library", no_nvcc)
     monkeypatch.setattr(ptr, "trace_dp", no_plain)
     _, pps, reads, _ = hits("flags")
