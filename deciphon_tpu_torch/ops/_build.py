@@ -22,6 +22,8 @@ import time
 from pathlib import Path
 from types import SimpleNamespace
 
+from deciphon_tpu_torch.utils import trace
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
@@ -65,6 +67,7 @@ def _library() -> SimpleNamespace:
     out = BUILD_DIR / f"kernels_{h.hexdigest()[:16]}"
     if not out.exists():
         nvcc = _nvcc()  # raises before any file is made
+        trace.count("library_builds")  # a scan that had to run nvcc
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
         # build into a private directory, then rename it: concurrent

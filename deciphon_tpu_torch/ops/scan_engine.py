@@ -56,7 +56,6 @@ from typing import Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from deciphon_tpu_torch.db.format import TensorDB
 from deciphon_tpu_torch.db.partition import pack_profile_rows
@@ -174,7 +173,8 @@ class Tables:
         self._lock = threading.Lock()
 
     def _build(self, blk: Block, codes: tuple = ()) -> list[Tile]:
-        profiles = [self.db.profile(int(i)) for i in blk.chunk]
+        with trace.span("ext_tables.pack") if codes else trace.NOOP:
+            profiles = [self.db.profile(int(i)) for i in blk.chunk]
         if self.mesh is not None:
             return shard_tiles(profiles, blk.kpad, self.mesh, codes)
         return [Tile(0, 0, np.arange(len(profiles)), vc.CudaBlock.from_profiles(
@@ -186,7 +186,13 @@ class Tables:
         extended ones (``codes``) built anew on every call and owned by
         the caller."""
         if codes:
-            return self._build(blk, codes)
+            with trace.span("pass1.ext_tables"):
+                tiles = self._build(blk, codes)
+                if trace.active():
+                    trace.count("ext_tables", len(tiles))
+                    trace.count("ext_table_bytes",
+                                sum(t.blk.nbytes for t in tiles))
+            return tiles
         with self._lock:
             if blk.tiles is None:
                 blk.tiles = self._build(blk)
@@ -236,6 +242,10 @@ class ScanEngine:
         # host-clock seconds of the last scan's phases (pass 1 ends in
         # the scan's syncs, so it includes the device time)
         self.last_timings: dict = {}
+        # the last scan's spans and counters (utils/trace), empty when it
+        # was not recorded
+        self.last_spans: list = []
+        self.last_counts: dict = {}
         # the last scan's LRT survivors, as trace_groups takes them
         self.last_survivors: list = []
         # overlapping warmups run one after the other
@@ -261,8 +271,9 @@ class ScanEngine:
         scan's output and batch buffers at full size while computing one
         position; then the outputs' pull, one sync per device.  On the
         CPU the same path runs the plain version.  Leaves ``last_*``,
-        ``progress`` and the trace counters as they were; overlapping
-        warmups run one after the other.  Seconds spent."""
+        ``progress`` and pass 2's counters as they were, and its spans
+        are not recorded (no scan root); overlapping warmups run one
+        after the other.  Seconds spent."""
         with self._warm_lock:
             t0 = time.perf_counter()
             if self.device.type == "cuda":
@@ -320,21 +331,27 @@ class ScanEngine:
 
     def scan(self, seqs: Sequence[SeqRecord]) -> list[Hit]:
         """Score all (read, profile) pairs; return the LRT-passing hits
-        with traceback and match strings, ordered (read, profile).  With
+        with traceback and match strings, ordered (read, profile).  The
+        scan is a root span (utils/trace): recorded, its spans and
+        counters are kept as ``last_spans`` and ``last_counts``.  With
         DCP_PROFILE_DIR set the scan runs under a torch.profiler trace
-        (utils/trace.device_trace), its phases named as in
-        ``last_timings``."""
-        with trace.device_trace("scan", self.device):
-            return self._scan(seqs)
+        (utils/trace.device_trace) that shows every span as a range."""
+        with trace.device_trace("scan", self.device), \
+                trace.root("scan") as rec:
+            hits = self._scan(seqs)
+        if seqs:
+            self.last_spans, self.last_counts = rec.spans, rec.counts
+        return hits
 
     def _scan(self, seqs: Sequence[SeqRecord]) -> list[Hit]:
-        encoded, classes = self.encode(seqs)
+        te = time.perf_counter()
+        with trace.span("encode"):
+            encoded, classes = self.encode(seqs)
         if not seqs:
             return []
-        counters = trace.ScanCounters()
         t0 = time.perf_counter()
-        with record_function("pass1"):
-            pieces = self._pull(self._queue(encoded, classes, counters))
+        with trace.span("pass1"):
+            pieces = self._pull(self._queue(encoded, classes))
             S, P = len(encoded), self.db.nprofiles
             alt = np.full((S, P), NEG, np.float32)
             null = np.full((S, P), NEG, np.float32)
@@ -344,7 +361,7 @@ class ScanEngine:
         t1 = time.perf_counter()
         self.last_scores = (alt, null)
         p = self.params
-        with record_function("gate"):
+        with trace.span("gate"):
             lrt = xmath.lrt(null.astype(np.float64), alt.astype(np.float64))
             ok = np.isfinite(lrt) & (lrt >= p.lrt_threshold)
             ok &= alt > NEG / 2
@@ -357,13 +374,12 @@ class ScanEngine:
             ]
         t2 = time.perf_counter()
         self.last_survivors = survivors
-        with record_function("pass2"):
+        with trace.span("pass2"):
             hits = self._traceback(seqs, encoded, survivors)
         self.last_timings = dict(
-            pass1=t1 - t0, gate=t2 - t1, pass2=time.perf_counter() - t2,
-            survivors=len(survivors),
+            encode=t0 - te, pass1=t1 - t0, gate=t2 - t1,
+            pass2=time.perf_counter() - t2, survivors=len(survivors),
         )
-        counters.report()
         hits.sort(key=lambda h: (h.seq_idx, h.profile_idx))
         return hits
 
@@ -372,21 +388,20 @@ class ScanEngine:
         launch; ties keep the first maximum in block order (the JAX
         engine's ``jnp.argmax`` within a block, a strictly larger LRT
         across blocks).  Reads whose every LRT is -inf are left out.  No
-        traceback: use ``scan`` for products.  Traced as ``scan`` is."""
-        with trace.device_trace("best_hits", self.device):
+        traceback: use ``scan`` for products.  Traced as ``scan`` is, under
+        a root span ``best_hits``; leaves every ``last_*`` field."""
+        with trace.device_trace("best_hits", self.device), \
+                trace.root("best_hits"):
             return self._best_hits(seqs)
 
     def _best_hits(self, seqs: Sequence[SeqRecord]) -> list[BestHit]:
-        encoded, classes = self.encode(seqs)
+        with trace.span("encode"):
+            encoded, classes = self.encode(seqs)
         if not seqs:
             return []
-        counters = trace.ScanCounters()
-        with record_function("pass1"):
-            pieces = self._pull(
-                self._queue(encoded, classes, counters, reduce=True)
-            )
+        with trace.span("pass1"):
+            pieces = self._pull(self._queue(encoded, classes, reduce=True))
         self._consume(pieces)
-        counters.report("best_hits")
         return [
             BestHit(
                 seq_id=seqs[si].seq_id, profile_idx=gi,
@@ -403,7 +418,7 @@ class ScanEngine:
             for rows, cols, _ in pieces:
                 self.progress.consume(len(rows) * len(cols))
 
-    def _queue(self, encoded, classes, counters, reduce: bool = False):
+    def _queue(self, encoded, classes, reduce: bool = False):
         """Queue every launch of pass 1, class by class and block by
         block.  Returns (rows, cols, out) per launch: rows are read
         indices, cols DB indices, and out, on the tile's device, the
@@ -413,18 +428,15 @@ class ScanEngine:
         pieces = []
         for codes in sorted(classes):
             ids = classes[codes]
-            order, eidx, slen = self.host_batch(
-                [encoded[si] for si in ids], codes
-            )
+            with trace.span("pass1.eidx"):
+                order, eidx, slen = self.host_batch(
+                    [encoded[si] for si in ids], codes
+                )
             rows = np.asarray(ids)[order]
             batch = _ShardedBatch(eidx, slen, seq_shards(
                 np.arange(len(order)), nshards
             ))
-            len_sum = int(slen.sum())
             for blk in self.blocks:
-                counters.consume(
-                    len_sum, int(self.db.core_sizes[blk.chunk].sum())
-                )
                 pieces.extend(self._queue_block(blk, codes, rows, batch,
                                                 reduce))
         return pieces
@@ -440,12 +452,14 @@ class ScanEngine:
             pos = batch.shards[t.s]
             if not len(pos):
                 continue
-            eidx, slen = batch.on(t.s, t.blk.fm.device)
-            alt, null = vc.scores(
-                t.blk, eidx, slen, multi_hits=p.multi_hits,
-                hmmer3_compat=p.hmmer3_compat, semiring=p.semiring,
-            )
-            res = tile_best(alt, null) if reduce else torch.stack([alt, null])
+            with trace.span("pass1.launch"):
+                eidx, slen = batch.on(t.s, t.blk.fm.device)
+                alt, null = vc.scores(
+                    t.blk, eidx, slen, multi_hits=p.multi_hits,
+                    hmmer3_compat=p.hmmer3_compat, semiring=p.semiring,
+                )
+                res = (tile_best(alt, null) if reduce
+                       else torch.stack([alt, null]))
             out.append((rows[pos], blk.chunk[t.cols], res))
         return out
 
@@ -453,21 +467,23 @@ class ScanEngine:
     def _pull(pieces):
         """The pieces with host numpy outputs: one transfer, and so one
         sync, per device."""
-        by_dev: dict[torch.device, list[int]] = {}
-        for i, (_, _, out) in enumerate(pieces):
-            by_dev.setdefault(out.device, []).append(i)
-        host = [None] * len(pieces)
-        for idx in by_dev.values():
-            flat = torch.cat(
-                [pieces[i][2].reshape(-1) for i in idx]
-            ).cpu().numpy()
-            off = 0
-            for i in idx:
-                shape = tuple(pieces[i][2].shape)
-                n = int(np.prod(shape))
-                host[i] = flat[off : off + n].reshape(shape)
-                off += n
-        return [(r, c, h) for (r, c, _), h in zip(pieces, host)]
+        with trace.span("pass1.pull"):
+            by_dev: dict[torch.device, list[int]] = {}
+            for i, (_, _, out) in enumerate(pieces):
+                by_dev.setdefault(out.device, []).append(i)
+            host = [None] * len(pieces)
+            for idx in by_dev.values():
+                trace.count("wait.pass1")
+                flat = torch.cat(
+                    [pieces[i][2].reshape(-1) for i in idx]
+                ).cpu().numpy()
+                off = 0
+                for i in idx:
+                    shape = tuple(pieces[i][2].shape)
+                    n = int(np.prod(shape))
+                    host[i] = flat[off : off + n].reshape(shape)
+                    off += n
+            return [(r, c, h) for (r, c, _), h in zip(pieces, host)]
 
     def trace_groups(self, survivors) -> dict[tuple, list]:
         """Pass 2's groups of survivors (read index, DB index, codes, alt,
@@ -503,19 +519,21 @@ class ScanEngine:
                 device=self.device,
             )
         hits: list[Hit] = []
-        for (_, items), ps, res_g in zip(groups, profs, results):
-            for (si, gi, _, alt, null, lrt), prof, res in zip(
-                items, ps, res_g
-            ):
-                rec = seqs[si]
-                hits.append(Hit(
-                    seq_id=rec.seq_id, seq_idx=si, profile_idx=gi,
-                    accession=prof.accession, alt_loglik=alt,
-                    null_loglik=null, lrt=lrt, path=res.path,
-                    match=codec.render_match(
-                        codec.match_steps(prof, rec.data, res.path)
-                    ),
-                ))
+        with trace.span("pass2.codec"):
+            for (_, items), ps, res_g in zip(groups, profs, results):
+                for (si, gi, _, alt, null, lrt), prof, res in zip(
+                    items, ps, res_g
+                ):
+                    rec = seqs[si]
+                    hits.append(Hit(
+                        seq_id=rec.seq_id, seq_idx=si, profile_idx=gi,
+                        accession=prof.accession, alt_loglik=alt,
+                        null_loglik=null, lrt=lrt, path=res.path,
+                        match=codec.render_match(
+                            codec.match_steps(prof, rec.data, res.path)
+                        ),
+                    ))
+        trace.count("hits_decoded", len(hits))
         return hits
 
 

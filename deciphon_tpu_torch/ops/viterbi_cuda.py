@@ -36,6 +36,7 @@ import torch
 
 from deciphon_tpu_torch.ops.tables import synth_fragment_tables
 from deciphon_tpu_torch.ops.viterbi_torch import NEG, TRANS_NAMES, specials
+from deciphon_tpu_torch.utils import trace
 
 (P_ENTRY, P_MM_OUT, P_IM_OUT, P_DM_OUT, P_MI, P_II, P_ABASE, P_CDD) = range(8)
 # the forward kernel's planes of ptrans (csrc/forward.cu), source-indexed
@@ -50,6 +51,8 @@ SEMIRINGS = ("max", "logsumexp")
 # viterbi_lse for "logsumexp"); callers that must show a run went through a kernel
 # set the counts to 0 before the run and read them after
 LAUNCHES = dict.fromkeys(SEMIRINGS, 0)
+# a scan's counter of each semiring's launches (utils/trace)
+COUNTERS = {"max": "launch.viterbi", "logsumexp": "launch.forward"}
 
 
 class CudaBlock(NamedTuple):
@@ -64,16 +67,24 @@ class CudaBlock(NamedTuple):
     def kpad(self) -> int:
         return self.fm.shape[2]
 
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the four tensors."""
+        return sum(t.numel() * t.element_size() for t in self)
+
     @classmethod
     def from_profiles(cls, profiles, kpad: int | None = None,
                       device="cuda", codes: tuple = ()) -> "CudaBlock":
         """Build with the fragment tables synthesized on ``device`` from
         the compact per-node inputs (ops/tables.py) — the counterpart of
         PallasBlock.from_profiles.  Non-empty ``codes`` builds the
-        extended base-(4+D) tables of reads holding those IUPAC codes."""
-        emis, qp, ine, inq, trans, ptrans, eps = pack_compact(
-            profiles, kpad, codes
-        )
+        extended base-(4+D) tables of reads holding those IUPAC codes,
+        in the spans ``ext_tables.pack`` (host) and ``ext_tables.synth``
+        (uploads and the synthesis's enqueue)."""
+        with trace.span("ext_tables.pack") if codes else trace.NOOP:
+            emis, qp, ine, inq, trans, ptrans, eps = pack_compact(
+                profiles, kpad, codes
+            )
         B, K, W = emis.shape
         dev = torch.device(device)
 
@@ -83,12 +94,13 @@ class CudaBlock(NamedTuple):
                 torch.from_numpy(q.reshape(-1, 5)).to(dev), eps, codes,
             )
 
-        fm = synth(emis, qp)
-        ntab = fm.shape[1]
-        fm = fm.reshape(B, K, ntab).transpose(1, 2).contiguous()
-        fin = synth(ine, inq).reshape(B, 2, ntab)
-        return cls(fm, fin, torch.from_numpy(trans).to(dev),
-                   torch.from_numpy(ptrans).to(dev))
+        with trace.span("ext_tables.synth") if codes else trace.NOOP:
+            fm = synth(emis, qp)
+            ntab = fm.shape[1]
+            fm = fm.reshape(B, K, ntab).transpose(1, 2).contiguous()
+            fin = synth(ine, inq).reshape(B, 2, ntab)
+            return cls(fm, fin, torch.from_numpy(trans).to(dev),
+                       torch.from_numpy(ptrans).to(dev))
 
 
 def pad_width(k: int) -> int:
@@ -472,4 +484,5 @@ def _launch(blk, eidx, seq_len, multi_hits, hmmer3_compat, semiring,
             f"{_build.error_string(rc)}"
         )
     LAUNCHES[semiring] += 1
+    trace.count(COUNTERS[semiring])
     return alt, null

@@ -41,6 +41,7 @@ from deciphon_tpu_torch.ops.viterbi_torch import (
     resolve_device,
     specials,
 )
+from deciphon_tpu_torch.utils import trace
 
 # survivors per traceback DP: bounds the [L, H, K] backpointer tensors
 TRACE_BATCH = 128
@@ -402,6 +403,7 @@ def _launch(pk: TracePack, out: TraceOut | None,
         raise RuntimeError(f"traceback kernel launch failed ({plan}): "
                            f"{_build.error_string(rc)}")
     LAUNCHES["traceback"] += 1
+    trace.count("launch.traceback")
     return out
 
 
@@ -588,6 +590,7 @@ def _to_host(buf: torch.Tensor, end: int, streams: list) -> np.ndarray:
         for s in streams:
             main.wait_stream(s)
     HOST_WAITS["pass2"] += 1
+    trace.count("wait.pass2")
     return buf[:end].cpu().numpy()
 
 
@@ -633,12 +636,13 @@ def trace_scan(groups: list, multi_hits: bool = True,
     for window, end in windows:
         walks = []  # (read lengths, K) per chunk
         for g, H, views in window:
-            _, block, eidx, lens = next(chunk_iter)
+            with trace.span("pass2.pack"):  # the host block build
+                _, block, eidx, lens = next(chunk_iter)
+                pk = card and pack_trace(block, eidx, lens, multi_hits,
+                                         hmmer3_compat, dev)
             if views["bpM"][2] != (int(lens.max()), *block.fm.shape[:2]):
                 raise AssertionError(f"chunk {j}: layout {views['bpM'][2]}")
             if card:
-                pk = pack_trace(block, eidx, lens, multi_hits, hmmer3_compat,
-                                dev)
                 ctx = contextlib.nullcontext()
                 if streams:
                     s = streams[j % len(streams)]
@@ -657,12 +661,14 @@ def trace_scan(groups: list, multi_hits: bool = True,
                     raw[off:off + b.size] = b.ravel()
             walks.append((lens, block.fm.shape[1]))
             j += 1
-        raw = _to_host(buf, end, streams)  # the window's one wait
-        for (g, H, views), (lens, K) in zip(window, walks):
-            ys = TraceOut(buf, views).host(raw)
-            for h in range(H):
-                ys_h = {k: v[:, h] for k, v in ys.items()}
-                results[g].append(vr.ViterbiResult(
-                    float(ys["VT"][lens[h] - 1, h]),
-                    walk(ys_h, int(lens[h]), K)))
+        with trace.span("pass2.wait"):
+            raw = _to_host(buf, end, streams)  # the window's one wait
+        with trace.span("pass2.walk"):
+            for (g, H, views), (lens, K) in zip(window, walks):
+                ys = TraceOut(buf, views).host(raw)
+                for h in range(H):
+                    ys_h = {k: v[:, h] for k, v in ys.items()}
+                    results[g].append(vr.ViterbiResult(
+                        float(ys["VT"][lens[h] - 1, h]),
+                        walk(ys_h, int(lens[h]), K)))
     return results

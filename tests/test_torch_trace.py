@@ -177,3 +177,284 @@ def test_device_trace_writes_one_chrome_trace(tiny_engine, tmp_path,
     assert phases <= names
     assert any(n and n.startswith("aten::") for n in names)
     assert not any(e.get("cat") == "kernel" for e in events)
+
+
+def test_device_trace_logs_the_traced_scans_counters(tiny_engine, tmp_path,
+                                                     monkeypatch):
+    """The log line that names the trace gives the counters of the scan it
+    traced, and of no scan before it."""
+    from deciphon_tpu_torch.utils import trace
+
+    said = []
+    monkeypatch.setattr(trace.log, "info", said.append)
+    engine, seqs = tiny_engine
+    with trace.recording():
+        engine.scan(seqs)  # recorded before the traced scan
+    monkeypatch.setenv("DCP_PROFILE_DIR", str(tmp_path / "prof"))
+    hits = engine.scan(seqs)
+    (line,) = said
+    want = dict(sorted(engine.last_counts.items()))
+    assert want["hits_decoded"] == len(hits) > 0
+    assert line.endswith(f", counters {want}")
+
+
+# The span recorder (utils/trace): a scan's root, its spans and counters.
+
+PASS1 = {"pass1.eidx", "pass1.ext_tables", "pass1.launch", "pass1.pull"}
+PASS2 = {"pass2.pack", "pass2.wait", "pass2.walk", "pass2.codec"}
+
+
+def _with_n(seqs):
+    from deciphon_tpu_torch.ops.scan_engine import SeqRecord
+
+    return seqs + [SeqRecord(3, "r3", "ACGNTGCAACGTTA")]
+
+
+def _recorded_scan(engine, seqs):
+    from deciphon_tpu_torch.utils import trace
+
+    with trace.recording():
+        hits = engine.scan(seqs)
+    return hits, engine.last_spans, engine.last_counts
+
+
+def _depths(spans):
+    by_id = {s.id: s for s in spans}
+    out = {}
+    for s in spans:
+        d, p = 0, s.parent
+        while p:
+            d, p = d + 1, by_id[p].parent
+        out[s.id] = d
+    return out
+
+
+def test_span_tree_of_a_tiny_scan(tiny_engine):
+    """One root 'scan'; encode, pass1, gate and pass2 under it; pass 1's
+    and pass 2's parts under them; one scan id for every span of a scan,
+    a new one for the next scan."""
+    engine, seqs = tiny_engine
+    _, spans, _ = _recorded_scan(engine, _with_n(seqs))
+    by_id = {s.id: s for s in spans}
+    root = spans[0]
+    assert root.name == "scan" and root.parent == 0
+    assert {s.scan for s in spans} == {root.scan}
+    parent = {s.name: by_id[s.parent].name for s in spans[1:]}
+    assert {n for n, p in parent.items() if p == "scan"} == {
+        "encode", "pass1", "gate", "pass2"}
+    assert {n for n, p in parent.items() if p == "pass1"} == PASS1
+    assert {n for n, p in parent.items() if p == "pass2"} == PASS2
+    assert {n for n, p in parent.items() if p == "pass1.ext_tables"} == {
+        "ext_tables.pack", "ext_tables.synth"}
+    # one eidx build per read class (ACGT, N), a launch per block and class
+    names = [s.name for s in spans]
+    assert names.count("pass1.eidx") == 2
+    assert names.count("pass1.launch") == 2 * len(engine.blocks)
+    assert names.count("pass1.ext_tables") == len(engine.blocks)
+    _, again, _ = _recorded_scan(engine, seqs)
+    assert {s.scan for s in again} == {again[0].scan}
+    assert again[0].scan != root.scan
+    assert not {s.id for s in again} & {s.id for s in spans}
+
+
+def test_children_lie_inside_their_parent(tiny_engine):
+    engine, seqs = tiny_engine
+    _, spans, _ = _recorded_scan(engine, _with_n(seqs))
+    by_id = {s.id: s for s in spans}
+    for s in spans:
+        assert s.start <= s.end
+        if s.parent:
+            p = by_id[s.parent]
+            assert p.start <= s.start and s.end <= p.end, (s, p)
+    depth = _depths(spans)
+    assert max(depth.values()) == 3  # scan > pass1 > ext_tables > pack
+    # stamped on torch.profiler's clock, Unix-epoch ns
+    import time
+
+    assert abs(spans[-1].end - time.time_ns()) < 60e9
+
+
+def test_hits_decoded_counts_the_hits(tiny_engine):
+    engine, seqs = tiny_engine
+    hits, _, counts = _recorded_scan(engine, seqs)
+    assert hits and counts["hits_decoded"] == len(hits)
+    assert counts["wait.pass1"] == 1 and counts["wait.pass2"] == 1
+    # the CPU launches no kernel
+    assert not {k for k in counts if k.startswith("launch.")}
+
+
+@pytest.mark.parametrize("with_n", [True, False])
+def test_ext_tables_counted_only_for_reads_with_a_code(tiny_engine, with_n):
+    engine, seqs = tiny_engine
+    _, spans, counts = _recorded_scan(engine,
+                                      _with_n(seqs) if with_n else seqs)
+    n_ext = sum(s.name == "pass1.ext_tables" for s in spans)
+    if with_n:
+        assert counts["ext_tables"] == n_ext == len(engine.blocks)
+        want = sum(engine.packed(b, ("N",)).nbytes for b in engine.blocks)
+        assert counts["ext_table_bytes"] == want > 0
+    else:
+        assert counts.get("ext_tables", 0) == n_ext == 0
+        assert counts.get("ext_table_bytes", 0) == 0
+
+
+def test_recording_off_leaves_no_spans_and_the_same_results(tiny_engine):
+    """A scan that is not recorded keeps no spans or counters, and hits
+    and pass-1 scores equal a recorded scan's."""
+    from deciphon_tpu_torch.utils import trace
+
+    engine, seqs = tiny_engine
+    seqs = _with_n(seqs)
+    assert engine.last_spans == [] and engine.last_counts == {}
+    off = engine.scan(seqs)
+    assert engine.last_spans == [] and engine.last_counts == {}
+    off_scores = engine.last_scores
+    assert set(engine.last_timings) == {"encode", "pass1", "gate", "pass2",
+                                        "survivors"}
+    on, spans, _ = _recorded_scan(engine, seqs)
+    assert spans and trace.recorded()[-1].spans == spans
+    assert [(h.seq_idx, h.profile_idx, h.alt_loglik, h.path, h.match)
+            for h in on] == [(h.seq_idx, h.profile_idx, h.alt_loglik, h.path,
+                              h.match) for h in off]
+    for a, b in zip(off_scores, engine.last_scores):
+        np.testing.assert_array_equal(a, b)
+    engine.scan(seqs)  # off again: the last scan's fields empty again
+    assert engine.last_spans == [] and engine.last_counts == {}
+
+
+def test_off_no_range_and_a_profiler_records_with_phase_ranges_only(
+        tiny_engine, monkeypatch):
+    """Off, no span opens a record_function range.  Under a bare
+    torch.profiler a scan is recorded, and of its spans only the phases
+    pass1, gate and pass2 are ranges."""
+    import torch.profiler as tp
+
+    from deciphon_tpu_torch.utils import trace
+
+    opened = []
+    real = tp.record_function
+
+    def spy(name):
+        opened.append(name)
+        return real(name)
+
+    monkeypatch.setattr(tp, "record_function", spy)
+    engine, seqs = tiny_engine
+    engine.scan(_with_n(seqs))
+    engine.best_hits(seqs)
+    assert opened == []
+    with tp.profile(activities=[tp.ProfilerActivity.CPU]):
+        engine.scan(_with_n(seqs))
+    assert sorted(opened) == ["gate", "pass1", "pass2"]
+    assert engine.last_spans and trace.recorded()[-1].spans == engine.last_spans
+
+
+def test_best_hits_is_a_root_and_leaves_the_scan_fields(tiny_engine):
+    from deciphon_tpu_torch.utils import trace
+
+    engine, seqs = tiny_engine
+    _, spans, counts = _recorded_scan(engine, seqs)
+    with trace.recording():
+        assert engine.best_hits(seqs)
+    assert engine.last_spans is spans and engine.last_counts is counts
+    got = trace.recorded()[-1]
+    assert got.spans[0].name == "best_hits"
+    assert {s.name for s in got.spans} == {"best_hits", "encode", "pass1",
+                                           "pass1.eidx", "pass1.launch",
+                                           "pass1.pull"}
+
+
+def test_counts_and_spans_off_the_scan_thread(tiny_engine):
+    """A counter counted on the scan's thread is the scan's; one counted,
+    or a span opened, on another thread while a scan records (a warmup
+    beside it, say) is not."""
+    import threading
+
+    from deciphon_tpu_torch.utils import trace
+
+    engine, seqs = tiny_engine
+    seen = []
+
+    def other():
+        trace.count("test.bumps", 5)
+        with trace.span("elsewhere") as s:
+            seen.append(s)
+
+    real = engine._traceback
+
+    def traceback(*a):
+        trace.count("test.bumps", 3)
+        t = threading.Thread(target=other)
+        t.start()
+        t.join(timeout=30)
+        assert not t.is_alive()
+        return real(*a)
+
+    engine._traceback = traceback
+    _, spans, counts = _recorded_scan(engine, seqs)
+    assert counts["test.bumps"] == 3
+    assert seen == [trace.NOOP]
+    assert "elsewhere" not in {s.name for s in spans}
+
+
+def test_spans_match_their_ranges_in_a_device_trace(tiny_engine, tmp_path,
+                                                    monkeypatch, capsys):
+    """Under device_trace every span is a record_function range of the
+    Chrome trace, and each span's start and end lie within 1 ms of its
+    range's (one clock for both; the n-th span of a name pairs with the
+    n-th range).  A host that deschedules the scan between the range's
+    stamp and the span's widens the gap, so a scan that misses is traced
+    again, up to three times."""
+    import json
+
+    engine, seqs = tiny_engine
+    for attempt in range(3):
+        out = tmp_path / f"prof{attempt}"
+        monkeypatch.setenv("DCP_PROFILE_DIR", str(out))
+        engine.scan(_with_n(seqs))
+        spans = engine.last_spans
+        (path,) = (out / "scan").iterdir()
+        doc = json.loads(path.read_text())
+        base = doc.get("baseTimeNanoseconds", 0)
+        ranges = {}
+        for e in doc["traceEvents"]:
+            if e.get("cat") == "user_annotation":
+                s = base + 1e3 * e["ts"]
+                ranges.setdefault(e["name"], []).append((s, s + 1e3 * e["dur"]))
+        assert {s.name for s in spans} == set(ranges)
+        gaps = []
+        for name, rs in ranges.items():
+            mine = [(s.start, s.end) for s in spans if s.name == name]
+            assert len(mine) == len(rs)
+            for (s0, s1), (r0, r1) in zip(sorted(mine), sorted(rs)):
+                gaps += [abs(s0 - r0), abs(s1 - r1)]
+        if max(gaps) < 1e6:
+            break
+    with capsys.disabled():
+        print(f"\nspan vs range: median {sorted(gaps)[len(gaps) // 2]:.0f} ns, "
+              f"max {max(gaps):.0f} ns (attempt {attempt + 1})")
+    assert max(gaps) < 1e6
+
+
+def test_one_span_costs_off_and_on(capsys):
+    """One span's cost with recording off (a check of the thread's open
+    root) and on (two clock reads and a tuple), printed, not asserted."""
+    import time
+
+    from deciphon_tpu_torch.utils import trace
+
+    n = 20000
+
+    def per_span():
+        t0 = time.perf_counter_ns()
+        for _ in range(n):
+            with trace.span("pass1.launch"):
+                pass
+        return (time.perf_counter_ns() - t0) / n
+
+    off = per_span()
+    with trace.recording(), trace.root("cost") as rec:
+        on = per_span()
+    assert len(rec.spans) == n + 1
+    with capsys.disabled():
+        print(f"\none span: {off:.0f} ns off, {on:.0f} ns on (CPU)")

@@ -109,22 +109,26 @@ def test_warmup_runs_each_block_once_at_the_dummy_shapes(db, spy_scores,
     assert all(b.tiles is not None for b in engine.blocks)
 
 
-def test_warmup_leaves_the_scan_state(db, monkeypatch):
-    """No last_* field, progress, ScanCounters or pass-2 counter moves."""
-    consumed = []
-    monkeypatch.setattr(trace.ScanCounters, "consume",
-                        lambda self, *a: consumed.append(a))
+def test_warmup_leaves_the_scan_state(db):
+    """No last_* field (the recorded spans and counters too), progress or
+    pass-2 counter moves, and a warmup while recording records no scan."""
     engine = pse.ScanEngine(db, pse.ScanParams(lrt_threshold=-1e9),
                             device="cpu")
-    engine.scan(_recs(_reads(db)[:2]))
-    engine.progress = Progress(10 ** 9)
-    before = (engine.last_scores, dict(engine.last_timings),
-              list(engine.last_survivors), engine.progress.consumed,
-              dict(vtr.LAUNCHES), dict(vtr.HOST_WAITS), len(consumed))
-    engine.warmup(3, 50)
-    after = (engine.last_scores, dict(engine.last_timings),
-             list(engine.last_survivors), engine.progress.consumed,
-             dict(vtr.LAUNCHES), dict(vtr.HOST_WAITS), len(consumed))
+    with trace.recording():
+        engine.scan(_recs(_reads(db)[:2]))
+        assert engine.last_spans and engine.last_counts
+        engine.progress = Progress(10 ** 9)
+        before = (engine.last_scores, dict(engine.last_timings),
+                  list(engine.last_survivors), engine.progress.consumed,
+                  list(engine.last_spans), dict(engine.last_counts),
+                  dict(vtr.LAUNCHES), dict(vtr.HOST_WAITS),
+                  len(trace.recorded()))
+        engine.warmup(3, 50)
+        after = (engine.last_scores, dict(engine.last_timings),
+                 list(engine.last_survivors), engine.progress.consumed,
+                 list(engine.last_spans), dict(engine.last_counts),
+                 dict(vtr.LAUNCHES), dict(vtr.HOST_WAITS),
+                 len(trace.recorded()))
     assert after[0] is before[0] and after[1:] == before[1:]
 
 
