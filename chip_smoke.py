@@ -2,7 +2,7 @@
 """On-card smoke test of the deciphon_tpu_torch scan path (one NVIDIA GPU).
 
     python3 chip_smoke.py              # needs one CUDA card; ~8 min on an H100
-    python3 chip_smoke.py --menu-only  # phases 1-2, then stop
+    python3 chip_smoke.py --menu-only  # phases 1-2 and 3c, then stop
     python3 chip_smoke.py --trace-sweep [PARENT_TREE]
         # phase 1, the pass-2 menu, then the traceback plans' sweep:
         # trace_plan's plan against the alternatives of TRACE_SWEEP on the
@@ -44,7 +44,8 @@ Phases, each fatal on failure:
      port's CLI (subprocess) and the same engine in process: planted
      reads (also those holding N, and N and R) must hit their profiles,
      the semiring's kernel must have been launched once per block and
-     read class, every pass-1 cell of every class must equal the plain
+     read class, and csrc/tables.cu once per block and class with IUPAC
+     codes (tables.LAUNCHES), every pass-1 cell of every class must equal the plain
      version, and no jax may be loaded.  Pass 2 must have launched the
      traceback kernel once per chunk of each (width, class) group, waited
      on the card once (viterbi_trace.trace_scan) and never called
@@ -60,6 +61,14 @@ Phases, each fatal on failure:
      bytes over 3.35 TB/s and its operations over the card's rates (see
      `bound`); the ACGT class under Viterbi also prints one line per
      block (width, profiles, launch plan, ms, share of its bound);
+ 3c. the extended tables of phase 3's DB, built from one store's
+     resident inputs (uploaded once) for base 5 ("N") and base 6 ("N",
+     "R"), each by csrc/tables.cu (one launch per block after the f64
+     pattern-marginal product) and by synth_fragment_tables on the card:
+     fm and fin within TABLES_ULPS units in the last place, with max
+     |d|, launches, card time of each and the kernel's share of its
+     bytes' floor; then two profiles' tables for seven codes, where the
+     kernel reads the pattern marginals from device memory;
  3b. the cold start, on phase 3's DB and reads: per algorithm a fresh
      process (--cold-worker) with ScanEngine.warmup and one without,
      each printing host-clock seconds of import torch, the package,
@@ -111,7 +120,9 @@ The last two lines are the card line and a JSON {"ok": true, ...}; the
 line before them is the JSON kernel table, which lists per kernel the
 launches of each path (scan, sharded, daemon, distributed, traced,
 cold: phase 3b's processes) beside phase 3's; the traceback row's
-launches, times and bound are those of phase 3's two scans.
+launches, times and bound are those of phase 3's two scans, the
+tables row's launches those of phase 3's two scans and its times,
+error and bound phase 3c's.
 """
 
 from __future__ import annotations
@@ -222,6 +233,15 @@ TRACE_H1_K = 385  # the cell of one hit
 # the dD comparison; E's two slots (M and D).  The specials are per (hit,
 # position), not per node, and are left out as in MAX_OPS.
 TRACE_OPS = (40 + 19) + (20 + 9) + 6 + 2
+# phase 3c: the extended tables' kernel (csrc/tables.cu) against the
+# torch synthesis it replaces on the card; both add the same f32 terms
+# in the same order, so only logf's rounding may differ
+TABLES_NAME = "tables"  # ops/tables.LAUNCHES' key and the table's row
+TABLES_SOURCE = "deciphon_tpu_torch/csrc/tables.cu"
+TABLES_REPLACES = ("none: the torch synthesis of ops/tables.py "
+                   "(deciphon_tpu/ops/tables.py in XLA)")
+TABLES_ULPS = 2
+TABLES_WIDE = tuple("NRYSWKM")  # the kernel's other instantiation
 # the paths of phases 3-7 and 3b, in the kernel table's "paths"
 PATHS = ("scan", "sharded", "daemon", "distributed", "traced", "cold")
 # phase 3b: how much longer the first scan's pass-1 launch calls may take
@@ -840,6 +860,7 @@ def launch_work(blk, eidx, slen, semiring: str,
 
 
 def reset_launches() -> None:
+    from deciphon_tpu_torch.ops import tables
     from deciphon_tpu_torch.ops import viterbi_cuda as vc
     from deciphon_tpu_torch.ops import viterbi_trace as vtr
 
@@ -847,6 +868,23 @@ def reset_launches() -> None:
         vc.LAUNCHES[k] = 0
     vtr.LAUNCHES[TRACE_NAME] = 0
     vtr.HOST_WAITS["pass2"] = 0
+    tables.LAUNCHES[TABLES_NAME] = 0
+
+
+def table_launches() -> int:
+    """csrc/tables.cu launches since reset_launches."""
+    from deciphon_tpu_torch.ops import tables
+
+    return tables.LAUNCHES[TABLES_NAME]
+
+
+def check_table_launches(got: int, want: int, what: str) -> int:
+    """``got`` table launches must be ``want``: one per extended block
+    (or profile shard) of each class with IUPAC codes."""
+    if got != want:
+        raise SystemExit(f"{what}: {got} {TABLES_NAME} launches, want "
+                         f"{want} (extended blocks x classes with codes)")
+    return got
 
 
 def trace_waits() -> int:
@@ -1321,7 +1359,7 @@ def cold_worker(dtp: str, fasta: str, algo: str, warm: str,
     t["import torch"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     from deciphon_tpu_torch.db.format import TensorDB
-    from deciphon_tpu_torch.ops import _build
+    from deciphon_tpu_torch.ops import _build, tables
     from deciphon_tpu_torch.ops import viterbi_cuda as vc
     from deciphon_tpu_torch.ops import viterbi_trace as vtr
     from deciphon_tpu_torch.ops.scan_engine import (
@@ -1381,7 +1419,8 @@ def cold_worker(dtp: str, fasta: str, algo: str, warm: str,
         out["launch_s"][name] = calls[:]
     out.update(t=t, phases=phases, hits=len(hits),
                launches=dict(vc.LAUNCHES),
-               trace_launches=vtr.LAUNCHES[TRACE_NAME])
+               trace_launches=vtr.LAUNCHES[TRACE_NAME],
+               table_launches=tables.LAUNCHES[TABLES_NAME])
     print(json.dumps(out))
     return 0
 
@@ -1399,6 +1438,7 @@ def cold_daemon(dtp: str, fasta: str, workdir: str, device: str) -> int:
     import torch
 
     from deciphon_tpu_torch.ops import scan_engine as pse
+    from deciphon_tpu_torch.ops import tables
     from deciphon_tpu_torch.ops import viterbi_cuda as vc
     from deciphon_tpu_torch.ops import viterbi_trace as vtr
     from deciphon_tpu_torch.server.daemon import Server
@@ -1442,7 +1482,8 @@ def cold_daemon(dtp: str, fasta: str, workdir: str, device: str) -> int:
             rows=len(fake.products[-1].splitlines()) - 1
             if fake.products else 0,
             launches=dict(vc.LAUNCHES),
-            trace_launches=vtr.LAUNCHES[TRACE_NAME])))
+            trace_launches=vtr.LAUNCHES[TRACE_NAME],
+            table_launches=tables.LAUNCHES[TABLES_NAME])))
     finally:
         fake.shutdown()
     return 0
@@ -1476,9 +1517,10 @@ def phase_cold_start(ctx, workdir: str, dev) -> dict:
     phase 3's warmed CLI's byte for byte.  Then a fresh daemon's scan job
     (``cold_daemon``): job and spool seconds, whether the warmup begun
     during the spool ended inside it, rows equal in number to phase 3's
-    hits.  Returns the launches of these runs, per semiring and under
-    TRACE_NAME."""
-    launches = dict.fromkeys((*TOL, TRACE_NAME), 0)
+    hits.  Each process must launch csrc/tables.cu once per extended
+    block and scan (the warmup builds none).  Returns the launches of
+    these runs, per semiring and under TRACE_NAME and TABLES_NAME."""
+    launches = dict.fromkeys((*TOL, TRACE_NAME, TABLES_NAME), 0)
     for semiring in TOL:
         algo = ALGO[semiring]
         for warm in ("1", "0"):
@@ -1487,6 +1529,9 @@ def phase_cold_start(ctx, workdir: str, dev) -> dict:
             for k, n in rec["launches"].items():
                 launches[k] += n
             launches[TRACE_NAME] += rec["trace_launches"]
+            launches[TABLES_NAME] += check_table_launches(
+                rec["table_launches"], 2 * ctx["tables_per_scan"],
+                f"cold start {algo}, warmup {warm} (two scans)")
             steps = ", ".join(f"{k} {v:.4f} s" for k, v in rec["t"].items())
             phases = "; ".join(
                 f"{n} scan pass 1 {p['pass1']:.4f} s, gate {p['gate']:.4f} "
@@ -1549,6 +1594,8 @@ def phase_cold_start(ctx, workdir: str, dev) -> dict:
     for k, n in rec["launches"].items():
         launches[k] += n
     launches[TRACE_NAME] += rec["trace_launches"]
+    launches[TABLES_NAME] += check_table_launches(
+        rec["table_launches"], ctx["tables_per_scan"], "cold daemon")
     (t1, n1, l1, s1, e1), (t2, n2, l2, s2, e2) = rec["warmups"]
     s0, s_end = rec["spool"]
     print(f"cold daemon (fresh process of {rec['wall_s']:.4f} s, host "
@@ -1605,6 +1652,12 @@ def phase_main_path(dev, workdir: str, clock: float):
         launches = dict(vc.LAUNCHES)
         tb = check_trace_launches(engine, plain_calls[0],
                                   f"main path {algo}")
+        ext_classes = sum(1 for codes in classes if codes)
+        ctx["tables_per_scan"] = len(engine.blocks) * ext_classes
+        ctx["ext_classes"] = ext_classes
+        tl = check_table_launches(table_launches(), ctx["tables_per_scan"],
+                                  f"main path {algo}")
+        ctx["table_launches"] = ctx.get("table_launches", 0) + tl
         want = len(engine.blocks) * len(classes)
         other = sum(n for s, n in launches.items() if s != semiring)
         if launches[semiring] != want or other:
@@ -1621,7 +1674,9 @@ def phase_main_path(dev, workdir: str, clock: float):
                              f"[{len(reads)}, {NPROF}]")
         print(f"engine scan: {launches[semiring]} {KERNEL_NAME[semiring]} "
               f"launches = {len(engine.blocks)} blocks x {len(classes)} "
-              f"classes; pass 2: {tb} {TRACE_NAME} launches for "
+              f"classes; {tl} {TABLES_NAME} launches = "
+              f"{len(engine.blocks)} blocks x {ext_classes} classes with "
+              f"codes; pass 2: {tb} {TRACE_NAME} launches for "
               f"{len(engine.last_survivors)} survivors, no trace_dp call")
         ctx["scores"][semiring] = engine.last_scores
         ctx["classes"] = len(classes)
@@ -1728,6 +1783,143 @@ def phase_main_path(dev, workdir: str, clock: float):
     return out, ctx
 
 
+def ulps_apart(a, b):
+    """Largest distance in f32 units in the last place between two f32
+    tensors of one shape (on the float line ordered as integers)."""
+    import torch
+
+    def key(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((key(a) - key(b)).abs().max()) if a.numel() else 0
+
+
+def phase_ext_tables(db, dev) -> dict:
+    """Phase 3c: the extended tables of every block of ``db`` on the
+    card, for each class of EXT_CODES, built twice from a store's
+    resident inputs: by csrc/tables.cu (``CudaBlock.extended``: the f64
+    pattern-marginal product, then one launch) and by its plain version
+    ``block_tables_plain`` (synth_fragment_tables, node and insert/null
+    rows apart).  fm and fin must agree within TABLES_ULPS units in the
+    last place; prints max |d|, ulps, launches, card time of each
+    (CUDA events, min of 3), bytes written and the kernel's share of
+    their floor at 3.35 TB/s.  Returns the kernel table's row, whose
+    launches ``main`` takes from the scans of phases 3-3b."""
+    import torch
+
+    from deciphon_tpu_torch.ops import tables
+    from deciphon_tpu_torch.ops import viterbi_cuda as vc
+    from deciphon_tpu_torch.ops.scan_engine import Tables
+    from deciphon_tpu_torch.utils import trace
+
+    print("--- extended tables: csrc/tables.cu vs synth_fragment_tables ---")
+    store = Tables(db, dev)
+    store.prepare()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with trace.recording(), trace.root("ext_inputs") as rec:
+        store._ext_inputs()
+        store._ext_inputs()
+    torch.cuda.synchronize()
+    inputs = [blk.ext[0] for blk in store.blocks]
+    in_bytes = sum(4 * (e.emis.numel() + e.qp.numel()) for e in inputs)
+    if rec.counts.get("ext_inputs_built") != 1:
+        raise SystemExit(f"ext inputs built {rec.counts}: want 1")
+    print(f"resident inputs: {len(inputs)} blocks, {in_bytes} B, built "
+          f"once in {time.perf_counter() - t0:.2f} s (host clock)")
+    bases = [t.blk for blk in store.blocks for t in store.tiles(blk)]
+    worst = {"ulps": 0, "abs": 0.0}
+    k_total = p_total = 0.0
+    written = 0
+    for codes in EXT_CODES:
+        n0 = table_launches()
+        kern = [vc.CudaBlock.extended(e, b, codes)
+                for e, b in zip(inputs, bases)]
+        launched = table_launches() - n0
+        if launched != len(inputs):
+            raise SystemExit(f"{codes}: {launched} tables launches for "
+                             f"{len(inputs)} blocks")
+        d_abs, d_ulp = 0.0, 0
+        nbytes = 0
+        for e, blk in zip(inputs, kern):
+            fm, fin = tables.block_tables_plain(e.emis, e.qp, e.eps, codes,
+                                                e.B, e.kpad)
+            for got, want in ((blk.fm, fm), (blk.fin, fin)):
+                if got.shape != want.shape:
+                    raise SystemExit(f"{codes}: shape {tuple(got.shape)} "
+                                     f"vs {tuple(want.shape)}")
+                d_abs = max(d_abs, float((got - want).abs().max()))
+                d_ulp = max(d_ulp, ulps_apart(got, want))
+                nbytes += 4 * got.numel()
+            del fm, fin
+        del kern
+        torch.cuda.empty_cache()
+
+        def run_kernel():
+            for e, b in zip(inputs, bases):
+                vc.CudaBlock.extended(e, b, codes)
+
+        def run_plain():
+            for e in inputs:
+                tables.block_tables_plain(e.emis, e.qp, e.eps, codes, e.B,
+                                          e.kpad)
+
+        mq = [tables._ext_inputs(e.emis, e.qp, codes, e.eps)
+              for e in inputs]
+        l_ms = timed_ms(lambda: [tables.launch_tables(
+            me, qe, e.eps, codes, e.B, e.kpad)
+            for (me, qe), e in zip(mq, inputs)], reps=3)
+        del mq
+        k_ms = timed_ms(run_kernel, reps=3)
+        p_ms = timed_ms(run_plain, reps=3)
+        floor_ms = 1e3 * nbytes / PEAK_BYTES
+        ntab = tables.term_rows(codes)[0].shape[0] - 1
+        print(f"class {codes} (ntab {ntab}): max|d| {d_abs:.3g}, "
+              f"{d_ulp} ulp; {launched} launches a build; kernel "
+              f"{l_ms:.3f} ms, {k_ms:.3f} ms with the f64 products, vs "
+              f"plain {p_ms:.3f} ms; {nbytes} B written, floor "
+              f"{floor_ms:.3f} ms, kernel at {100 * floor_ms / l_ms:.1f}% "
+              f"of it")
+        if d_ulp > TABLES_ULPS:
+            raise SystemExit(f"{codes}: kernel tables {d_ulp} ulp off "
+                             f"the plain version (max|d| {d_abs})")
+        worst["ulps"] = max(worst["ulps"], d_ulp)
+        worst["abs"] = max(worst["abs"], d_abs)
+        k_total += l_ms
+        p_total += p_ms
+        written += nbytes
+    # seven codes (base 11): Me outgrows shared memory and the kernel
+    # reads it from device memory; two of the narrowest profiles
+    small = np.argsort(db.core_sizes, kind="stable")[:2]
+    profs = [db.profile(int(i)) for i in small]
+    e = vc.CompactInputs.from_profiles(
+        profs, max(p.core_size for p in profs), dev)
+    got = e.tables(TABLES_WIDE)
+    want = tables.block_tables_plain(e.emis, e.qp, e.eps, TABLES_WIDE,
+                                     e.B, e.kpad)
+    d_ulp = max(ulps_apart(g, w) for g, w in zip(got, want))
+    d_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    print(f"class {TABLES_WIDE} (ntab {got[0].shape[1]}, {e.B} profiles, "
+          f"K {e.kpad}, Me from device memory): max|d| {d_abs:.3g}, "
+          f"{d_ulp} ulp")
+    if d_ulp > TABLES_ULPS:
+        raise SystemExit(f"{TABLES_WIDE}: kernel tables {d_ulp} ulp off")
+    worst["ulps"] = max(worst["ulps"], d_ulp)
+    worst["abs"] = max(worst["abs"], d_abs)
+    del store, bases, inputs, got, want
+    torch.cuda.empty_cache()
+    return {
+        "name": "tables", "route": "cuda", "source": TABLES_SOURCE,
+        "replaces": TABLES_REPLACES,
+        "max_abs_err": worst["abs"], "max_ulps": worst["ulps"],
+        "ms": k_total, "plain_ms": p_total,
+        "bound_ms": 1e3 * written / PEAK_BYTES, "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
 def block_lines(engine, blks, eidx, slen, db, clock) -> None:
     """One line per block of a class under Viterbi: padded width,
     profiles, launch plan, kernel ms (min of 3, CUDA events) and the
@@ -1761,8 +1953,8 @@ def scan_mesh():
 
 
 def phase_sharded(ctx) -> dict:
-    """Per semiring: launches of the sharded scans; under TRACE_NAME the
-    traceback launches of both."""
+    """Per semiring: launches of the sharded scans; under TRACE_NAME and
+    TABLES_NAME the traceback and table launches of both."""
     import torch
 
     from deciphon_tpu_torch.ops import viterbi_cuda as vc
@@ -1787,6 +1979,11 @@ def phase_sharded(ctx) -> dict:
             hits = engine.scan(seqs)
         launches = dict(vc.LAUNCHES)
         tb = check_trace_launches(engine, plain_calls[0], f"sharded {algo}")
+        # one synthesis per profile shard, copied down its mesh column
+        shards = sum(len({t.p for t in b.tiles}) for b in engine.blocks)
+        tl = check_table_launches(table_launches(),
+                                  shards * ctx["ext_classes"],
+                                  f"sharded {algo}")
         want = ntiles * ctx["classes"]
         other = sum(n for s, n in launches.items() if s != semiring)
         if launches[semiring] != want or other:
@@ -1794,8 +1991,9 @@ def phase_sharded(ctx) -> dict:
                              f"{semiring} (tiles x classes)")
         print(f"sharded scan: {want} {KERNEL_NAME[semiring]} launches = "
               f"{ntiles} tiles over {len(engine.blocks)} blocks x "
-              f"{ctx['classes']} classes; pass 2: {tb} {TRACE_NAME} "
-              "launches")
+              f"{ctx['classes']} classes; {tl} {TABLES_NAME} launches = "
+              f"{shards} profile shards x {ctx['ext_classes']} classes "
+              f"with codes; pass 2: {tb} {TRACE_NAME} launches")
         for name, got, ref in zip(("alt", "null"), engine.last_scores,
                                   ctx["scores"][semiring]):
             if not np.array_equal(got, ref):
@@ -1822,14 +2020,15 @@ def phase_sharded(ctx) -> dict:
               f"{ctx['cells'] / warm / 1e9:.2f} GCUPS")
         out[semiring] = launches[semiring]
         out[TRACE_NAME] = out.get(TRACE_NAME, 0) + tb
+        out[TABLES_NAME] = out.get(TABLES_NAME, 0) + tl
         del engine
         torch.cuda.empty_cache()
     return out
 
 
 def phase_daemon(ctx, workdir: str) -> dict:
-    """Per semiring, and under TRACE_NAME: launches of the daemon's scan
-    jobs."""
+    """Per semiring, and under TRACE_NAME and TABLES_NAME: launches of
+    the daemon's scan jobs."""
     from deciphon_tpu_torch.ops import viterbi_cuda as vc
     from deciphon_tpu_torch.server.daemon import Server
     from deciphon_tpu_torch.server.fake_sched import FakeScheduler
@@ -1838,7 +2037,7 @@ def phase_daemon(ctx, workdir: str) -> dict:
     db, seqs, planted = ctx["db"], ctx["seqs"], ctx["planted"]
     fake = FakeScheduler(spool_dir=os.path.join(workdir, "sched"))
     url = fake.serve()
-    launches = dict.fromkeys((*TOL, TRACE_NAME), 0)
+    launches = dict.fromkeys((*TOL, TRACE_NAME, TABLES_NAME), 0)
     try:
         cfg = ServerConfig(cache_dir=os.path.join(workdir, "daemon"),
                            api_url=url, single_run=True)
@@ -1883,6 +2082,10 @@ def phase_daemon(ctx, workdir: str) -> dict:
                     launches[k] += n
                 tb = trace_launches()
                 launches[TRACE_NAME] += tb
+                # one scan (or best_hits) call: the reads fit one batch
+                launches[TABLES_NAME] += check_table_launches(
+                    table_launches(), ctx["tables_per_scan"],
+                    f"daemon {mode}")
             finally:
                 os.environ.pop("DCP_BEST_HIT", None)
             if vc.LAUNCHES["max"] == 0:
@@ -2230,8 +2433,8 @@ def main(argv: list[str]) -> int:
     menu_only = argv == ["--menu-only"]
     sweep = argv[:1] == ["--trace-sweep"] and len(argv) <= 2
     if argv and not (menu_only or sweep):
-        print("usage: chip_smoke.py [--menu-only | --trace-sweep "
-              "[PARENT_TREE]]", file=sys.stderr)
+        print("usage: chip_smoke.py [--menu-only | "
+              "--trace-sweep [PARENT_TREE]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2271,15 +2474,23 @@ def main(argv: list[str]) -> int:
     print(f"menu done at {time.perf_counter() - t_start:.1f} s")
     menu_err[TRACE_NAME] = phase_trace_menu(dev, clock)
     print(f"trace menu done at {time.perf_counter() - t_start:.1f} s")
-    if menu_only:  # phases 1-2: the build and the menu, then stop
-        return 0
     # scratch for the synthetic DB and reads, inside the checkout
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
+    if menu_only:  # phases 1-2 and 3c on phase 3's DB, then stop
+        try:
+            row = phase_ext_tables(main_path_inputs(workdir)[0], dev)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        print(json.dumps({"kernels": [row]}))
+        return 0
     try:
         main_path, ctx = phase_main_path(dev, workdir, clock)
         print(f"main path done at {time.perf_counter() - t_start:.1f} s")
+        tables_row = phase_ext_tables(ctx["db"], dev)
+        print(f"extended tables done at "
+              f"{time.perf_counter() - t_start:.1f} s")
         cold = phase_cold_start(ctx, workdir, dev)
         print(f"cold start done at {time.perf_counter() - t_start:.1f} s")
         sharded = phase_sharded(ctx)
@@ -2335,6 +2546,14 @@ def main(argv: list[str]) -> int:
         "bound_ms": t_bound, "bound_by": t_by, "library_ms": None,
         "paths": {k: n for k, n in per_path.items() if n},
     })
+    # the table synthesis: launches of phase 3's two scans, and of each
+    # path whose reads carry IUPAC codes; times, error and bound phase 3c's
+    per_path = dict(zip(PATHS, (
+        ctx["table_launches"], sharded[TABLES_NAME], daemon[TABLES_NAME],
+        0, 0, cold[TABLES_NAME],
+    )))
+    kernels.append({**tables_row, "launches": per_path["scan"],
+                    "paths": {k: n for k, n in per_path.items() if n}})
     print(trace_summary)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")

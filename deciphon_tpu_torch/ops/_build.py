@@ -96,10 +96,12 @@ def _library() -> SimpleNamespace:
     viterbi = ctypes.CDLL(str(out / "viterbi.so"))
     forward = ctypes.CDLL(str(out / "forward.so"))
     traceback = ctypes.CDLL(str(out / "traceback.so"))
+    tables = ctypes.CDLL(str(out / "tables.so"))
     lib = SimpleNamespace(
         dcp_viterbi_max=viterbi.dcp_viterbi_max,
         dcp_viterbi_lse=forward.dcp_viterbi_lse,
         dcp_traceback=traceback.dcp_traceback,
+        dcp_tables=tables.dcp_tables,
         dcp_cuda_error_string=viterbi.dcp_cuda_error_string,
     )
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -118,7 +120,11 @@ def _library() -> SimpleNamespace:
     #  smem; stream); viterbi_trace.launch_trace
     lib.dcp_traceback.argtypes = (
         [p] * 5 + [f, f] + [p] * 10 + [i] * 10 + [p])
-    for fn in (lib.dcp_viterbi_max, lib.dcp_viterbi_lse, lib.dcp_traceback):
+    # the table synthesis (tables.cu): (me, qe, start, word, combo, coef,
+    #  fm, fin, B, Kp, ntab, S, ncombo, stream); ops/tables.launch_tables
+    lib.dcp_tables.argtypes = [p] * 8 + [i] * 5 + [p]
+    for fn in (lib.dcp_viterbi_max, lib.dcp_viterbi_lse, lib.dcp_traceback,
+               lib.dcp_tables):
         fn.restype = i
     lib.dcp_cuda_error_string.argtypes = [i]
     lib.dcp_cuda_error_string.restype = ctypes.c_char_p

@@ -41,7 +41,15 @@ store that engines of one DB differing only in ScanParams may share.  A
 class's extended tables are built per block just before that block's
 launches and released right after they are queued, so at most one
 extended block is alive at a time (base-6 tables are ~7x the base-4
-ones).
+ones).  They are synthesized on the device from per-node inputs that
+the store uploads once, at the first extended block it is asked for
+(``vc.CompactInputs``: codon and background probabilities, ~276 bytes a
+node), by one launch of csrc/tables.cu per block on a card
+(ops/tables.block_tables; ``synth_fragment_tables`` on the CPU), and share
+the transition planes of the block's base-4 tables.  On a mesh the
+inputs are uploaded per profile shard, and each shard's tables are
+synthesized once on its column's first device and copied to the rest
+(``shard_inputs``, ``extend_tiles``).
 
 The device is explicit: ``device="cuda"`` on a machine without a GPU
 raises, and the CPU runs only when named.
@@ -73,8 +81,10 @@ from deciphon_tpu_torch.ops.viterbi_torch import (
 from deciphon_tpu_torch.parallel.mesh import ScanMesh
 from deciphon_tpu_torch.parallel.sharded_scan import (
     Tile,
+    extend_tiles,
     merge_best,
     seq_shards,
+    shard_inputs,
     shard_tiles,
     tile_best,
 )
@@ -137,6 +147,8 @@ class Block:
     chunk: np.ndarray
     kpad: int
     tiles: list[Tile] | None = None
+    # inputs of extended tables per profile shard (sharded_scan.shard_inputs)
+    ext: dict[int, vc.CompactInputs] | None = None
 
 
 class Tables:
@@ -172,14 +184,36 @@ class Tables:
         # a prewarm thread and a scan never build one block twice
         self._lock = threading.Lock()
 
+    def _profiles(self, blk: Block) -> list:
+        return [self.db.profile(int(i)) for i in blk.chunk]
+
     def _build(self, blk: Block, codes: tuple = ()) -> list[Tile]:
-        with trace.span("ext_tables.pack") if codes else trace.NOOP:
-            profiles = [self.db.profile(int(i)) for i in blk.chunk]
+        if codes:
+            base = self.tiles(blk)
+            with trace.span("ext_tables.pack"):
+                self._ext_inputs()
+            with trace.span("ext_tables.synth"):
+                return extend_tiles(blk.ext, base, codes)
+        profiles = self._profiles(blk)
         if self.mesh is not None:
-            return shard_tiles(profiles, blk.kpad, self.mesh, codes)
+            return shard_tiles(profiles, blk.kpad, self.mesh)
         return [Tile(0, 0, np.arange(len(profiles)), vc.CudaBlock.from_profiles(
-            profiles, kpad=blk.kpad, device=self.device, codes=codes,
+            profiles, kpad=blk.kpad, device=self.device,
         ))]
+
+    def _ext_inputs(self) -> None:
+        """Upload every block's inputs of extended tables, per profile
+        shard on its tiles' device, once in the store's life (counted as
+        ``ext_inputs_built``)."""
+        bases = [self.tiles(blk) for blk in self.blocks]
+        with self._lock:
+            if self.blocks[0].ext is not None:
+                return
+            trace.count("ext_inputs_built")
+            built = [shard_inputs(self._profiles(blk), blk.kpad, tiles)
+                     for blk, tiles in zip(self.blocks, bases)]
+            for blk, ext in zip(self.blocks, built):
+                blk.ext = ext
 
     def tiles(self, blk: Block, codes: tuple = ()) -> list[Tile]:
         """The block's tiles: the base-4 ones, built once and kept;

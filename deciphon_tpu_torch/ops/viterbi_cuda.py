@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from deciphon_tpu_torch.ops.tables import synth_fragment_tables
+from deciphon_tpu_torch.ops.tables import block_tables
 from deciphon_tpu_torch.ops.viterbi_torch import NEG, TRANS_NAMES, specials
 from deciphon_tpu_torch.utils import trace
 
@@ -53,6 +53,45 @@ SEMIRINGS = ("max", "logsumexp")
 LAUNCHES = dict.fromkeys(SEMIRINGS, 0)
 # a scan's counter of each semiring's launches (utils/trace)
 COUNTERS = {"max": "launch.viterbi", "logsumexp": "launch.forward"}
+
+
+class CompactInputs(NamedTuple):
+    """A block's compact inputs of table synthesis on its device
+    (``pack_emissions``' arrays): rows [0, B*kpad) are the nodes b*kpad
+    + k, rows B*kpad + 2b + {0, 1} profile b's insert and null
+    distributions (zero probabilities on padding nodes).  Those of
+    extended tables (codon probabilities) do not depend on the codes, so
+    a store builds them once (ops/scan_engine.Tables)."""
+
+    emis: torch.Tensor  # [B*kpad + 2B, W] codon marginals or probabilities
+    qp: torch.Tensor  # [B*kpad + 2B, 5] background probabilities
+    B: int
+    kpad: int
+    eps: float
+
+    @classmethod
+    def from_profiles(cls, profiles, kpad: int, device) -> "CompactInputs":
+        """The inputs of extended tables: codon probabilities."""
+        emis, qp, ine, inq = pack_emissions(profiles, pad_width(kpad),
+                                            codonp=True)
+        return cls.upload(emis, qp, ine, inq,
+                          float(profiles[0].cfg.epsilon), device)
+
+    @classmethod
+    def upload(cls, emis, qp, ine, inq, eps, device) -> "CompactInputs":
+        """From ``pack_emissions``' host arrays, in one copy each."""
+        B, Kp, W = emis.shape
+        rows = np.concatenate([emis.reshape(-1, W), ine.reshape(-1, W)])
+        q = np.concatenate([qp.reshape(-1, 5), inq.reshape(-1, 5)])
+        return cls(torch.from_numpy(rows).to(device),
+                   torch.from_numpy(q).to(device), B, Kp, eps)
+
+    def tables(self, codes: tuple = ()):
+        """(fm [B, ntab, kpad], fin [B, 2, ntab]) of read class ``codes``
+        (ops/tables.block_tables: csrc/tables.cu for extended tables on
+        a card)."""
+        return block_tables(self.emis, self.qp, self.eps, codes, self.B,
+                            self.kpad)
 
 
 class CudaBlock(NamedTuple):
@@ -79,28 +118,23 @@ class CudaBlock(NamedTuple):
         the compact per-node inputs (ops/tables.py) — the counterpart of
         PallasBlock.from_profiles.  Non-empty ``codes`` builds the
         extended base-(4+D) tables of reads holding those IUPAC codes,
-        in the spans ``ext_tables.pack`` (host) and ``ext_tables.synth``
-        (uploads and the synthesis's enqueue)."""
-        with trace.span("ext_tables.pack") if codes else trace.NOOP:
-            emis, qp, ine, inq, trans, ptrans, eps = pack_compact(
-                profiles, kpad, codes
-            )
-        B, K, W = emis.shape
+        from inputs packed and uploaded for this block alone (a scan's
+        store keeps them resident instead: ``extended``)."""
+        emis, qp, ine, inq, trans, ptrans, eps = pack_compact(
+            profiles, kpad, codes
+        )
         dev = torch.device(device)
+        inputs = CompactInputs.upload(emis, qp, ine, inq, eps, dev)
+        return cls(*inputs.tables(codes), torch.from_numpy(trans).to(dev),
+                   torch.from_numpy(ptrans).to(dev))
 
-        def synth(e, q):
-            return synth_fragment_tables(
-                torch.from_numpy(e.reshape(-1, W)).to(dev),
-                torch.from_numpy(q.reshape(-1, 5)).to(dev), eps, codes,
-            )
-
-        with trace.span("ext_tables.synth") if codes else trace.NOOP:
-            fm = synth(emis, qp)
-            ntab = fm.shape[1]
-            fm = fm.reshape(B, K, ntab).transpose(1, 2).contiguous()
-            fin = synth(ine, inq).reshape(B, 2, ntab)
-            return cls(fm, fin, torch.from_numpy(trans).to(dev),
-                       torch.from_numpy(ptrans).to(dev))
+    @classmethod
+    def extended(cls, inputs: CompactInputs, base: "CudaBlock",
+                 codes: tuple) -> "CudaBlock":
+        """The extended block of read class ``codes`` from a store's
+        resident ``inputs``; the transition planes, which do not depend
+        on the codes, are the base-4 block's own tensors."""
+        return cls(*inputs.tables(codes), base.trans, base.ptrans)
 
 
 def pad_width(k: int) -> int:
@@ -189,43 +223,52 @@ def pack_numpy_block(block, dtype=np.float32) -> CudaBlock:
     )
 
 
-def pack_compact(profiles, kpad: int | None = None, codes: tuple = ()):
-    """Host side of device table synthesis: compact per-node emission
-    inputs instead of full tables (viterbi_pallas.pack_block_compact).
-
-    Returns (emis [B, Kp, W], qp [B, Kp, 5], ine [B, 2, W],
-    inq [B, 2, 5], trans [B, NPLANES, Kp], ptrans [B, NPLANES, Kp], eps);
-    row 0 of ine/inq is the
-    insert distribution, row 1 the null one.  ``emis`` holds the codon
-    marginals (W = 125) for base-4 tables, and the codon probabilities
-    (W = 64) when ``codes`` asks for extended ones."""
+def pack_emissions(profiles, Kp: int, codonp: bool = False):
+    """(emis [B, Kp, W], qp [B, Kp, 5], ine [B, 2, W], inq [B, 2, 5]) f32,
+    the per-node emission inputs of table synthesis: row 0 of ine/inq is
+    the insert distribution, row 1 the null one; ``emis`` holds the codon
+    marginals (W = 125), or with ``codonp`` the codon probabilities (W =
+    64) that extended tables take.  Padding nodes hold zero
+    probabilities (log 0 -> NEG on the device)."""
     B = len(profiles)
-    K = max(p.core_size for p in profiles)
-    if kpad is not None:
-        assert kpad >= K
-        K = kpad
-    Kp = pad_width(K)
-    kind, W = ("codonp", 64) if codes else ("marg", 125)
+    kind, W = ("codonp", 64) if codonp else ("marg", 125)
     emis = np.zeros((B, Kp, W), np.float32)
     qp = np.zeros((B, Kp, 5), np.float32)
     ine = np.zeros((B, 2, W), np.float32)
     inq = np.zeros((B, 2, 5), np.float32)
-    arrs = {n: np.full((B, Kp), NEG, np.float32) for n in TRANS_NAMES}
     for b, p in enumerate(profiles):
         k = p.core_size
-        # zero probabilities on padding nodes -> log 0 -> NEG on device
         emis[b, :k] = np.exp(getattr(p, f"match_{kind}"))
         qp[b, :k] = np.exp(p.match_q)
         ine[b, 0] = np.exp(getattr(p, f"insert_{kind}"))
         inq[b, 0] = np.exp(p.insert_q)
         ine[b, 1] = np.exp(getattr(p, f"null_{kind}"))
         inq[b, 1] = np.exp(p.null_q)
+    return emis, qp, ine, inq
+
+
+def pack_compact(profiles, kpad: int | None = None, codes: tuple = ()):
+    """Host side of device table synthesis: compact per-node emission
+    inputs instead of full tables (viterbi_pallas.pack_block_compact).
+
+    Returns (emis, qp, ine, inq) of ``pack_emissions`` (the codon
+    probabilities when ``codes`` asks for extended tables), then
+    (trans [B, NPLANES, Kp], ptrans [B, NPLANES, Kp], eps)."""
+    K = max(p.core_size for p in profiles)
+    if kpad is not None:
+        assert kpad >= K
+        K = kpad
+    Kp = pad_width(K)
+    B = len(profiles)
+    arrs = {n: np.full((B, Kp), NEG, np.float32) for n in TRANS_NAMES}
+    for b, p in enumerate(profiles):
         for name, arr in arrs.items():
-            arr[b, :k] = np.maximum(
+            arr[b, :p.core_size] = np.maximum(
                 np.asarray(getattr(p, name), np.float64), NEG
             )
     eps = float(profiles[0].cfg.epsilon)
-    return emis, qp, ine, inq, pack_trans(arrs), pack_prob_trans(arrs), eps
+    return (*pack_emissions(profiles, Kp, codonp=bool(codes)),
+            pack_trans(arrs), pack_prob_trans(arrs), eps)
 
 
 # The Viterbi kernel's instantiations (csrc/viterbi.cu

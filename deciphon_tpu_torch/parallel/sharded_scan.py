@@ -54,14 +54,14 @@ def profile_shards(n: int, nshards: int) -> list[np.ndarray]:
             for p in range(nshards)]
 
 
-def shard_tiles(profiles, kpad: int, mesh: ScanMesh, codes: tuple = (),
+def shard_tiles(profiles, kpad: int, mesh: ScanMesh,
                 local=None) -> list[Tile]:
     """One Tile per (read shard, non-empty profile shard), or per mesh
     slot in ``local`` (indices into ``mesh.devices``: a process of a
-    multi-process mesh builds only its own).  A shard's tables are built
-    once per profile shard and copied to every other tile of its mesh
-    column, so no two tiles share a tensor even where the mesh repeats a
-    device."""
+    multi-process mesh builds only its own), with base-4 tables.  A
+    shard's tables are built once per profile shard and copied to every
+    other tile of its mesh column, so no two tiles share a tensor even
+    where the mesh repeats a device."""
     tiles = []
     for p, cols in enumerate(profile_shards(len(profiles), mesh.profiles)):
         if not len(cols):
@@ -74,12 +74,44 @@ def shard_tiles(profiles, kpad: int, mesh: ScanMesh, codes: tuple = (),
             if first is None:
                 first = blk = vc.CudaBlock.from_profiles(
                     [profiles[i] for i in cols], kpad=kpad, device=dev,
-                    codes=codes,
                 )
             else:
                 blk = vc.CudaBlock(*(t.to(dev, copy=True) for t in first))
             tiles.append(Tile(s, p, cols, blk))
     return tiles
+
+
+def shard_inputs(profiles, kpad: int, tiles: list[Tile]) -> dict:
+    """{profile shard p: the inputs of its extended tables
+    (vc.CompactInputs)} on the device of p's first tile in ``tiles``
+    (a block's base-4 tiles; one tile of all its profiles unsharded)."""
+    out = {}
+    for t in tiles:
+        if t.p not in out:
+            out[t.p] = vc.CompactInputs.from_profiles(
+                [profiles[i] for i in t.cols], kpad, t.blk.fm.device)
+    return out
+
+
+def extend_tiles(inputs: dict, tiles: list[Tile], codes: tuple
+                 ) -> list[Tile]:
+    """The extended tiles of read class ``codes`` over a block's base-4
+    ``tiles``: each profile shard's tables synthesized once from its
+    ``inputs`` (``shard_inputs``; vc.CudaBlock.extended) and copied to
+    every other tile of its mesh column; the transition planes, which do
+    not depend on the codes, are each base tile's own tensors."""
+    out, first = [], {}
+    for t in tiles:
+        if t.p not in first:
+            blk = first[t.p] = vc.CudaBlock.extended(inputs[t.p], t.blk,
+                                                     codes)
+        else:
+            dev = t.blk.fm.device
+            blk = vc.CudaBlock(first[t.p].fm.to(dev, copy=True),
+                               first[t.p].fin.to(dev, copy=True),
+                               t.blk.trans, t.blk.ptrans)
+        out.append(Tile(t.s, t.p, t.cols, blk))
+    return out
 
 
 def seq_shards(order, nshards: int) -> list[list[int]]:

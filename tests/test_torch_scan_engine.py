@@ -241,15 +241,14 @@ def test_extended_blocks_freed_after_scan(db, monkeypatch):
     import weakref
 
     built = []
-    orig = vc.CudaBlock.from_profiles.__func__
+    orig = vc.CudaBlock.extended.__func__
 
-    def spy(cls, profiles, kpad=None, device="cuda", codes=()):
-        blk = orig(cls, profiles, kpad, device, codes)
-        if codes:
-            built.append((codes, weakref.ref(blk.fm)))
+    def spy(cls, inputs, base, codes):
+        blk = orig(cls, inputs, base, codes)
+        built.append((codes, weakref.ref(blk.fm)))
         return blk
 
-    monkeypatch.setattr(vc.CudaBlock, "from_profiles", classmethod(spy))
+    monkeypatch.setattr(vc.CudaBlock, "extended", classmethod(spy))
     reads = _iupac_reads(db)
     classes = {encode_extended(r)[1] for r in reads} - {()}
     eng = pse.ScanEngine(db, pse.ScanParams(lrt_threshold=1e9),

@@ -298,6 +298,23 @@ def test_ext_tables_counted_only_for_reads_with_a_code(tiny_engine, with_n):
         assert counts.get("ext_table_bytes", 0) == 0
 
 
+def test_ext_inputs_built_once_in_the_stores_life(tiny_engine):
+    """The extended tables' inputs are built in the first scan that meets
+    a code set, and a later scan of another code set reuses them: the
+    counter reads 1, then 0."""
+    from deciphon_tpu_torch.ops.scan_engine import SeqRecord
+
+    engine, seqs = tiny_engine
+    _, _, first = _recorded_scan(engine, _with_n(seqs))
+    _, spans, second = _recorded_scan(
+        engine, seqs + [SeqRecord(4, "r4", "ACGRTGCAACGTTA")])
+    assert first["ext_inputs_built"] == 1
+    assert second.get("ext_inputs_built", 0) == 0
+    assert second["ext_tables"] == len(engine.blocks)
+    assert sum(s.name == "ext_tables.synth" for s in spans) == len(
+        engine.blocks)
+
+
 def test_recording_off_leaves_no_spans_and_the_same_results(tiny_engine):
     """A scan that is not recorded keeps no spans or counters, and hits
     and pass-1 scores equal a recorded scan's."""
