@@ -59,3 +59,29 @@ def tiny_cell(workload="pfam4k_vit.reads150_mix", algo=None):
 @pytest.fixture
 def bench_json():
     return json.loads((ROOT / "BENCHMARK.json").read_text())
+
+
+# Quantities that only a card produces, and why a traced run on the CPU
+# reads nothing of them.
+CARD_ONLY = (
+    ("launches_per_unit", "the launch.* counters count kernel launches, and the CPU path launches none"),
+)
+
+
+def traced_cpu_metrics(workload: str, recorder: bool = True) -> set[str]:
+    """The per-layer metrics that a traced run of ``workload`` on the CPU
+    reports, taken from BENCHMARK.json: the cell's entries that the
+    program's spans and counters feed (the CPU has no device trace), less
+    the quantities of CARD_ONLY.  With ``recorder`` false (a program that
+    records no scan) only those whose reader reads no recorded scan."""
+    from portbench.lib import harness, spans
+
+    card_only = {q for q, _ in CARD_ONLY}
+    out = set()
+    for m in harness.load_cell(workload).per_layer:
+        if (m["source"] not in ("program_span", "program_counter")
+                or m["name"].split(".")[0] in card_only):
+            continue
+        if recorder or vars(harness.metric_reader(m["name"])).get("spans") is not spans:
+            out.add(m["name"])
+    return out

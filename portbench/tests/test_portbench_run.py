@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import ROOT, tiny_cell
+from conftest import ROOT, tiny_cell, traced_cpu_metrics
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "deciphon_tpu"}
 
@@ -36,9 +36,16 @@ def test_last_line_shape(tiny_cache):
 
 
 def test_traced_run_reports_per_layer_metrics(tiny_cache):
-    res = _run(tiny_cell("pfam4k_vit.genes_query"), trace=True)
-    # the CPU has no device trace: only the engine's spans are read
-    assert set(res["metrics"]) == {"pass1_ms.query", "pass2_ms.query"}
+    """The genes cell's traced run on the CPU reads every metric of the
+    program's spans and counters that BENCHMARK.json gives the cell (the
+    CPU has no device trace, and launches no kernel to count)."""
+    want = traced_cpu_metrics("pfam4k_vit.genes_query")
+    assert {"pass1_ms.query", "pass2_ms.query", "pass1_wait_ms.query",
+            "codec_ms_per_hit.query"} <= want
+    # the window's third request carries a domain: room for a few
+    res = _run(tiny_cell("pfam4k_vit.genes_query"), trace=True, seconds=2.0)
+    assert set(res["metrics"]) == want
+    assert all(v["value"] > 0 for v in res["metrics"].values())
 
 
 @pytest.mark.parametrize("script, seed", [("run.py", "--seed"),

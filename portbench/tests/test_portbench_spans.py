@@ -7,7 +7,7 @@ from types import SimpleNamespace
 
 import pytest
 
-from conftest import tiny_cell
+from conftest import tiny_cell, traced_cpu_metrics
 
 
 def _run(cell, trace=False, seconds=0.5):
@@ -50,9 +50,10 @@ def two_units(monkeypatch):
     scans = [
         _scan(1, 10.1, [("pass1.ext_tables", 100), ("pass1.pull", 20),
                         ("pass2.pack", 30), ("pass2.codec", 40)],
-              {"hits_decoded": 4}),
+              {"hits_decoded": 4, "launch.viterbi": 12, "launch.traceback": 2,
+               "wait.pass1": 1}),
         _scan(2, 11.2, [("pass1.ext_tables", 50), ("pass1.pull", 10)],
-              {"hits_decoded": 0}),
+              {"hits_decoded": 0, "launch.viterbi": 12, "launch.tables": 1}),
     ]
     monkeypatch.setattr(spans, "recorded", lambda: scans)
     records = [_record(10.0, 11.0), _record(11.0, 12.5)]
@@ -64,6 +65,9 @@ def two_units(monkeypatch):
     ("pass1_wait_ms_per_kread.batch", 15.0),
     ("trace_pack_ms_per_kread.mix", 15.0),
     ("codec_ms_per_hit.mix", 10.0),
+    ("pass1_wait_ms.query", 15.0),
+    ("codec_ms_per_hit.query", 10.0),
+    ("launches_per_unit.query", 13.5),
 ])
 def test_each_reader_on_hand_made_records(two_units, metric, want):
     from portbench.lib import harness
@@ -79,11 +83,15 @@ def test_readers_find_nothing_without_a_scan_for_every_unit(two_units,
     run, scans = two_units
     run.records.append(_record(13.0, 14.0))  # no scan opened in it
     for m in ("ext_tables_ms_per_kread", "pass1_wait_ms_per_kread",
-              "trace_pack_ms_per_kread", "codec_ms_per_hit"):
+              "trace_pack_ms_per_kread", "codec_ms_per_hit", "pass1_wait_ms",
+              "launches_per_unit"):
         assert harness.metric_reader(m).read(run) is None
     run.records.pop()
     scans[0].counts["hits_decoded"] = 0  # a window without a hit
     assert harness.metric_reader("codec_ms_per_hit").read(run) is None
+    for s in scans:  # a window that launched no kernel, as on the CPU
+        s.counts = {k: n for k, n in s.counts.items() if not k.startswith("launch.")}
+    assert harness.metric_reader("launches_per_unit").read(run) is None
     monkeypatch.setattr(spans, "recorded", lambda: None)  # an older program
     assert harness.metric_reader("pass1_wait_ms_per_kread").read(run) is None
 
@@ -142,22 +150,31 @@ SPANS_MIX = {"ext_tables_ms_per_kread.mix", "trace_pack_ms_per_kread.mix",
     ("pfam4k_vit.reads150_bg", {"pass1_ms_per_kread.batch",
                                 "pass2_ms_per_kread.batch",
                                 "pass1_wait_ms_per_kread.batch"}),
+    ("pfam4k_fwd.reads150_bg", {"pass1_ms_per_kread.fwd",
+                                "pass2_ms_per_kread.fwd"}),
 ])
 def test_traced_run_reports_the_span_metrics(tiny_cache, workload, want):
-    """A batch cell's traced run on the CPU reads its span metrics beside
-    the phases' (every mix batch holds homologs, so the codec has hits),
-    and nothing else: the CPU has no device trace."""
+    """A batch cell's traced run on the CPU reads every metric of the
+    program's spans and counters that BENCHMARK.json gives the cell, and
+    nothing else: the CPU has no device trace.  ``want``, what the cell
+    reported when its set was first derived, stays in it (every mix
+    batch holds homologs, so the codec has hits)."""
+    derived = traced_cpu_metrics(workload)
+    assert want <= derived
     res = _run(tiny_cell(workload), trace=True)
-    assert set(res["metrics"]) == want
+    assert set(res["metrics"]) == derived
     assert all(v["value"] > 0 for v in res["metrics"].values())
 
 
 def test_traced_run_of_a_program_that_records_nothing(tiny_cache,
                                                       monkeypatch):
-    """Against a program without the recorder the new readers find
-    nothing and the run reports what it reported before."""
+    """Against a program without the recorder the readers of its spans
+    and counters find nothing and the run reports what it reported
+    before."""
     from deciphon_tpu_torch.utils import trace
 
+    want = traced_cpu_metrics("pfam4k_vit.reads150_mix", recorder=False)
+    assert MIX <= want
     monkeypatch.delattr(trace, "recorded")
     res = _run(tiny_cell(), trace=True)
-    assert set(res["metrics"]) == MIX
+    assert set(res["metrics"]) == want
