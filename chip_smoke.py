@@ -878,13 +878,69 @@ def table_launches() -> int:
     return tables.LAUNCHES[TABLES_NAME]
 
 
+def ext_slices(engine, classes) -> int:
+    """Profile slices a scan of ``classes`` builds extended tables in
+    (Tables.slices, per profile shard on a mesh): one table launch each.
+    At the smoke DB's size one a block (a shard on a mesh) and class."""
+    return sum(len(engine.tables.slices(b, codes))
+               for codes in classes if codes for b in engine.blocks)
+
+
 def check_table_launches(got: int, want: int, what: str) -> int:
-    """``got`` table launches must be ``want``: one per extended block
-    (or profile shard) of each class with IUPAC codes."""
+    """``got`` table launches must be ``want``: one per profile slice of
+    an extended block (or profile shard) of each class with IUPAC codes
+    (``ext_slices``); a scan that falls back to synth_fragment_tables
+    launches none."""
     if got != want:
         raise SystemExit(f"{what}: {got} {TABLES_NAME} launches, want "
-                         f"{want} (extended blocks x classes with codes)")
+                         f"{want} (extended slices x classes with codes)")
     return got
+
+
+def check_sliced_scan(engine, seqs, classes, hits, semiring: str,
+                      what: str) -> int:
+    """Scan ``seqs`` again with EXT_SLICE_BYTES a quarter of the largest
+    extended block's tables, so that the widest blocks are cut into
+    profile slices: every pass-1 cell must equal the whole blocks' scan
+    bit for bit, the hits (scores, paths, match strings) be identical,
+    and the launches be one table launch a slice and one kernel launch a
+    slice or base-4 block.  Returns the slices."""
+    from deciphon_tpu_torch.ops import scan_engine as se
+    from deciphon_tpu_torch.ops import tables
+    from deciphon_tpu_torch.ops import viterbi_cuda as vc
+
+    whole = [a.copy() for a in engine.last_scores]
+    ext = [codes for codes in classes if codes]
+    largest = max(tables.table_bytes(c, b.kpad) * len(b.chunk)
+                  for c in ext for b in engine.blocks)
+    keep = se.EXT_SLICE_BYTES
+    se.EXT_SLICE_BYTES = largest // 4
+    try:
+        n = ext_slices(engine, classes)
+        cut = n - len(engine.blocks) * len(ext)
+        reset_launches()
+        got = engine.scan(seqs)
+        launches = dict(vc.LAUNCHES)
+    finally:
+        se.EXT_SLICE_BYTES = keep
+    check_table_launches(table_launches(), n, f"{what}, sliced")
+    want = n + len(engine.blocks) * (len(classes) - len(ext))
+    if cut <= 0 or launches[semiring] != want:
+        raise SystemExit(f"{what}, sliced: {launches} launches for {n} "
+                         f"slices ({cut} more than blocks), want {want} "
+                         f"{semiring}")
+    for name, a, b in zip(("alt", "null"), whole, engine.last_scores):
+        if not np.array_equal(a.view(np.uint32), b.view(np.uint32)):
+            raise SystemExit(f"{what}, sliced: pass-1 {name} differs from "
+                             "the whole blocks' scan")
+    if [vars(h) for h in got] != [vars(h) for h in hits]:
+        raise SystemExit(f"{what}, sliced: hits differ from the whole "
+                         "blocks' scan")
+    print(f"sliced scan: {n} table launches for {n} slices ({cut} more "
+          f"than blocks x classes with codes, at {largest // 4} B a "
+          f"slice); every pass-1 cell bit-equal and {len(got)} hits "
+          "identical to the whole blocks'")
+    return n
 
 
 def trace_waits() -> int:
@@ -1653,12 +1709,13 @@ def phase_main_path(dev, workdir: str, clock: float):
         tb = check_trace_launches(engine, plain_calls[0],
                                   f"main path {algo}")
         ext_classes = sum(1 for codes in classes if codes)
-        ctx["tables_per_scan"] = len(engine.blocks) * ext_classes
+        ctx["tables_per_scan"] = ext_slices(engine, classes)
         ctx["ext_classes"] = ext_classes
+        ctx["class_codes"] = list(classes)
         tl = check_table_launches(table_launches(), ctx["tables_per_scan"],
                                   f"main path {algo}")
         ctx["table_launches"] = ctx.get("table_launches", 0) + tl
-        want = len(engine.blocks) * len(classes)
+        want = len(engine.blocks) * (len(classes) - ext_classes) + tl
         other = sum(n for s, n in launches.items() if s != semiring)
         if launches[semiring] != want or other:
             raise SystemExit(f"main path launches {launches}: want "
@@ -1676,8 +1733,11 @@ def phase_main_path(dev, workdir: str, clock: float):
               f"launches = {len(engine.blocks)} blocks x {len(classes)} "
               f"classes; {tl} {TABLES_NAME} launches = "
               f"{len(engine.blocks)} blocks x {ext_classes} classes with "
-              f"codes; pass 2: {tb} {TRACE_NAME} launches for "
-              f"{len(engine.last_survivors)} survivors, no trace_dp call")
+              f"codes, one slice each; pass 2: {tb} {TRACE_NAME} launches "
+              f"for {len(engine.last_survivors)} survivors, no trace_dp "
+              "call")
+        ctx["table_launches"] += check_sliced_scan(
+            engine, seqs, classes, hits, semiring, f"main path {algo}")
         ctx["scores"][semiring] = engine.last_scores
         ctx["classes"] = len(classes)
         if semiring == "max":
@@ -1979,10 +2039,11 @@ def phase_sharded(ctx) -> dict:
             hits = engine.scan(seqs)
         launches = dict(vc.LAUNCHES)
         tb = check_trace_launches(engine, plain_calls[0], f"sharded {algo}")
-        # one synthesis per profile shard, copied down its mesh column
+        # one synthesis per profile slice of a shard, copied down its
+        # mesh column
         shards = sum(len({t.p for t in b.tiles}) for b in engine.blocks)
         tl = check_table_launches(table_launches(),
-                                  shards * ctx["ext_classes"],
+                                  ext_slices(engine, ctx["class_codes"]),
                                   f"sharded {algo}")
         want = ntiles * ctx["classes"]
         other = sum(n for s, n in launches.items() if s != semiring)
@@ -1993,7 +2054,8 @@ def phase_sharded(ctx) -> dict:
               f"{ntiles} tiles over {len(engine.blocks)} blocks x "
               f"{ctx['classes']} classes; {tl} {TABLES_NAME} launches = "
               f"{shards} profile shards x {ctx['ext_classes']} classes "
-              f"with codes; pass 2: {tb} {TRACE_NAME} launches")
+              f"with codes, one slice each; pass 2: {tb} {TRACE_NAME} "
+              "launches")
         for name, got, ref in zip(("alt", "null"), engine.last_scores,
                                   ctx["scores"][semiring]):
             if not np.array_equal(got, ref):

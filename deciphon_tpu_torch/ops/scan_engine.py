@@ -38,18 +38,22 @@ A ``mesh`` (parallel/mesh.py) splits each block's profiles over its
 
 The base-4 tables stay on the device between scans, in a ``Tables``
 store that engines of one DB differing only in ScanParams may share.  A
-class's extended tables are built per block just before that block's
-launches and released right after they are queued, so at most one
-extended block is alive at a time (base-6 tables are ~7x the base-4
-ones).  They are synthesized on the device from per-node inputs that
-the store uploads once, at the first extended block it is asked for
-(``vc.CompactInputs``: codon and background probabilities, ~276 bytes a
-node), by one launch of csrc/tables.cu per block on a card
-(ops/tables.block_tables; ``synth_fragment_tables`` on the CPU), and share
-the transition planes of the block's base-4 tables.  On a mesh the
-inputs are uploaded per profile shard, and each shard's tables are
-synthesized once on its column's first device and copied to the rest
-(``shard_inputs``, ``extend_tiles``).
+class's extended tables are built per profile slice of a block just
+before that slice's launches and released right after they are queued,
+so at most one slice is alive at a time (base-6 tables are ~7x the
+base-4 ones).  A slice is a run of the block's profiles whose tables
+fit in EXT_SLICE_BYTES; a block under it is one slice
+(``sharded_scan.ext_slices``).  They are synthesized on the device from
+per-node inputs that the store uploads once, at the first extended block
+it is asked for (``vc.CompactInputs``: codon and background
+probabilities, ~276 bytes a node), from the slice's own rows of them, by
+one launch of csrc/tables.cu per slice on a card
+(ops/tables.block_tables; ``synth_fragment_tables`` on the CPU), and
+share views of the transition planes of the block's base-4 tables.  On a
+mesh the inputs are uploaded per profile shard, each shard is sliced by
+the same rule, and each slice's tables are synthesized once on its
+column's first device and copied to the rest (``shard_inputs``,
+``extend_tiles``).
 
 The device is explicit: ``device="cuda"`` on a machine without a GPU
 raises, and the CPU runs only when named.
@@ -81,6 +85,7 @@ from deciphon_tpu_torch.ops.viterbi_torch import (
 from deciphon_tpu_torch.parallel.mesh import ScanMesh
 from deciphon_tpu_torch.parallel.sharded_scan import (
     Tile,
+    ext_slices,
     extend_tiles,
     merge_best,
     seq_shards,
@@ -89,6 +94,13 @@ from deciphon_tpu_torch.parallel.sharded_scan import (
     tile_best,
 )
 from deciphon_tpu_torch.utils import trace, xmath
+
+# bytes of extended tables (fm and fin) alive at once on a device: a
+# block over it is built and scanned in profile slices
+# (sharded_scan.ext_slices), so the extended tables' memory does not grow
+# with the DB (the whole Pfam-A release's widest block takes 26.5 GB at
+# base 5 and 63.3 GB at base 6)
+EXT_SLICE_BYTES = 8 << 30
 
 
 @dataclass(frozen=True)
@@ -171,8 +183,11 @@ class Tables:
                  else db.core_sizes[self.subset])
         # one width per block: each profile at its LANE-rounded width
         # (the kernel runs one CTA per profile, so there are no sublane
-        # rows to fill), widths merged upward while the padding this
-        # adds stays under 1% of the nodes
+        # rows to fill), then whole blocks merged upward, each merge
+        # while the padding it adds stays under 1% of the nodes.  The
+        # merges add up: the 4,066,991 nodes of portbench's draw of
+        # 19,632 profiles fill 5,510,560 node slots (x1.355), and its
+        # width-1600 block, of cores 545-1600, x2.09
         self.blocks = []
         for kpad, _, _, idxs in pack_profile_rows(
             sizes, lane=vc.LANE, group=1, small_group_kpad=1 << 30,
@@ -187,13 +202,15 @@ class Tables:
     def _profiles(self, blk: Block) -> list:
         return [self.db.profile(int(i)) for i in blk.chunk]
 
-    def _build(self, blk: Block, codes: tuple = ()) -> list[Tile]:
+    def _build(self, blk: Block, codes: tuple = (), part=None) -> list[Tile]:
+        """The block's base-4 tiles, or with ``codes`` the extended tiles
+        of the profile slice ``part`` (an item of ``slices``)."""
         if codes:
-            base = self.tiles(blk)
             with trace.span("ext_tables.pack"):
                 self._ext_inputs()
+            column, pos = part
             with trace.span("ext_tables.synth"):
-                return extend_tiles(blk.ext, base, codes)
+                return extend_tiles(blk.ext[column[0].p], column, codes, pos)
         profiles = self._profiles(blk)
         if self.mesh is not None:
             return shard_tiles(profiles, blk.kpad, self.mesh)
@@ -215,22 +232,37 @@ class Tables:
             for blk, ext in zip(self.blocks, built):
                 blk.ext = ext
 
-    def tiles(self, blk: Block, codes: tuple = ()) -> list[Tile]:
-        """The block's tiles: the base-4 ones, built once and kept;
-        extended ones (``codes``) built anew on every call and owned by
-        the caller."""
+    def slices(self, blk: Block, codes: tuple):
+        """The block's profile slices for read class ``codes``
+        (sharded_scan.ext_slices at EXT_SLICE_BYTES)."""
+        return ext_slices(self.tiles(blk), blk.kpad, codes, EXT_SLICE_BYTES)
+
+    def tiles(self, blk: Block, codes: tuple = ()):
+        """The block's tiles: the base-4 ones, a list built once and
+        kept; extended ones (``codes``) yielded one profile slice at a
+        time (``slices``), built anew on every call and owned by the
+        caller.  A slice is built when the caller asks for its first
+        tile, and the generator then holds none of the last slice's: a
+        caller that drops each tile before asking for the next keeps at
+        most one slice alive."""
         if codes:
-            with trace.span("pass1.ext_tables"):
-                tiles = self._build(blk, codes)
-                if trace.active():
-                    trace.count("ext_tables", len(tiles))
-                    trace.count("ext_table_bytes",
-                                sum(t.blk.nbytes for t in tiles))
-            return tiles
+            return self._extended(blk, codes)
         with self._lock:
             if blk.tiles is None:
                 blk.tiles = self._build(blk)
         return blk.tiles
+
+    def _extended(self, blk: Block, codes: tuple):
+        for part in self.slices(blk, codes):
+            with trace.span("pass1.ext_tables"):
+                tiles = self._build(blk, codes, part)
+                trace.count("ext_slices")
+                if trace.active():
+                    trace.count("ext_tables", len(tiles))
+                    trace.count("ext_table_bytes",
+                                sum(t.blk.nbytes for t in tiles))
+            while tiles:
+                yield tiles.pop(0)
 
     def prepare(self) -> float:
         """Build every block's base-4 tables; seconds spent."""
@@ -287,9 +319,16 @@ class ScanEngine:
 
     def packed(self, blk: Block, codes: tuple = ()) -> vc.CudaBlock:
         """An unsharded engine's kernel-layout tables of ``blk``: the
-        base-4 ones kept, extended ones (``codes``) built anew."""
+        base-4 ones kept, extended ones (``codes``) built anew; a block
+        whose extended tables come in several profile slices is refused."""
         if self.mesh is not None:
             raise ValueError("a mesh engine's tables are per tile")
+        n = len(self.tables.slices(blk, codes)) if codes else 1
+        if n > 1:
+            raise ValueError(
+                f"the {len(blk.chunk)} profiles of width {blk.kpad} are "
+                f"built in {n} slices of at most EXT_SLICE_BYTES for codes "
+                f"{codes}: take them from Tables.tiles one slice at a time")
         (tile,) = self.tables.tiles(blk, codes)
         return tile.blk
 
@@ -476,25 +515,26 @@ class ScanEngine:
         return pieces
 
     def _queue_block(self, blk, codes, rows, batch, reduce):
-        """One block's launches, one per tile.  An extended block is
-        dropped as soon as they are queued, on return: the caching
-        allocator reuses its memory only for later work on the same
-        stream, which runs after the queued kernels."""
+        """One block's launches, one per tile.  An extended tile is
+        dropped as soon as its launch is queued, before the next profile
+        slice is built (``Tables.tiles``): the caching allocator reuses
+        its memory only for later work on the same stream, which runs
+        after the queued kernels."""
         p = self.params
         out = []
         for t in self.tables.tiles(blk, codes):
             pos = batch.shards[t.s]
-            if not len(pos):
-                continue
-            with trace.span("pass1.launch"):
-                eidx, slen = batch.on(t.s, t.blk.fm.device)
-                alt, null = vc.scores(
-                    t.blk, eidx, slen, multi_hits=p.multi_hits,
-                    hmmer3_compat=p.hmmer3_compat, semiring=p.semiring,
-                )
-                res = (tile_best(alt, null) if reduce
-                       else torch.stack([alt, null]))
-            out.append((rows[pos], blk.chunk[t.cols], res))
+            if len(pos):
+                with trace.span("pass1.launch"):
+                    eidx, slen = batch.on(t.s, t.blk.fm.device)
+                    alt, null = vc.scores(
+                        t.blk, eidx, slen, multi_hits=p.multi_hits,
+                        hmmer3_compat=p.hmmer3_compat, semiring=p.semiring,
+                    )
+                    res = (tile_best(alt, null) if reduce
+                           else torch.stack([alt, null]))
+                out.append((rows[pos], blk.chunk[t.cols], res))
+            del t  # the loop's next step may build the next slice
         return out
 
     @staticmethod

@@ -22,7 +22,8 @@ bf16 can enter: every product is an f32 multiply of the selected
 entries, and the one matmul (the pattern marginals) runs in f64.
 
 On a card, extended tables come from csrc/tables.cu instead
-(``block_tables``): one launch per block writes the kernels' layout
+(``block_tables``): one launch per block, or per profile slice of one
+(ops/scan_engine.EXT_SLICE_BYTES), writes the kernels' layout
 directly, with the same products and sums in the same order, from the
 term lists of ``term_rows``; ``synth_fragment_tables`` stays the CPU's
 path and the kernel's plain version (``block_tables_plain``).
@@ -213,6 +214,13 @@ def synth_fragment_tables(emis, qp, eps: float, codes: tuple = (),
     return out
 
 
+def table_bytes(codes: tuple, kpad: int) -> int:
+    """Bytes of one profile's fm and fin over base 4+len(codes) at padded
+    width ``kpad``: ntab rows of kpad nodes and of its insert and null
+    rows, f32."""
+    return 4 * (frag_layout(4 + len(codes))[1] + 1) * (kpad + 2)
+
+
 def block_tables_plain(emis, qp, eps: float, codes: tuple, B: int,
                        kpad: int):
     """(fm [B, ntab, kpad], fin [B, 2, ntab]) f32 of a block, on the
@@ -234,11 +242,17 @@ def block_tables(emis, qp, eps: float, codes: tuple, B: int, kpad: int):
     """``block_tables_plain``'s tables.  Extended ones (``codes`` not
     empty) on a card by one launch of csrc/tables.cu after the pattern
     marginals' f64 product (``launch_tables``); base-4 ones, and any on
-    the CPU, by ``block_tables_plain``."""
+    the CPU, by ``block_tables_plain``.  Extended ones add their fm and
+    fin bytes, which the launch writes, to the scan's counter
+    ``tables_written_bytes``."""
     if not (codes and emis.is_cuda):
-        return block_tables_plain(emis, qp, eps, codes, B, kpad)
-    me, qe = _ext_inputs(emis, qp, codes, eps)
-    return launch_tables(me, qe, eps, codes, B, kpad)
+        fm, fin = block_tables_plain(emis, qp, eps, codes, B, kpad)
+    else:
+        me, qe = _ext_inputs(emis, qp, codes, eps)
+        fm, fin = launch_tables(me, qe, eps, codes, B, kpad)
+    if codes:
+        trace.count("tables_written_bytes", 4 * (fm.numel() + fin.numel()))
+    return fm, fin
 
 
 def launch_tables(me, qe, eps: float, codes: tuple, B: int, kpad: int):

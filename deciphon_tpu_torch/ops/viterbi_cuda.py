@@ -86,6 +86,17 @@ class CompactInputs(NamedTuple):
         return cls(torch.from_numpy(rows).to(device),
                    torch.from_numpy(q).to(device), B, Kp, eps)
 
+    def rows(self, b0: int, b1: int) -> "CompactInputs":
+        """The inputs of profiles b0 .. b1-1 alone, in the same layout:
+        their node rows, then their insert and null rows."""
+        n, k = self.B * self.kpad, self.kpad
+
+        def take(t):
+            return torch.cat([t[b0 * k : b1 * k], t[n + 2 * b0 : n + 2 * b1]])
+
+        return CompactInputs(take(self.emis), take(self.qp), b1 - b0, k,
+                             self.eps)
+
     def tables(self, codes: tuple = ()):
         """(fm [B, ntab, kpad], fin [B, 2, ntab]) of read class ``codes``
         (ops/tables.block_tables: csrc/tables.cu for extended tables on
@@ -111,6 +122,10 @@ class CudaBlock(NamedTuple):
         """Device bytes of the four tensors."""
         return sum(t.numel() * t.element_size() for t in self)
 
+    def rows(self, b0: int, b1: int) -> "CudaBlock":
+        """Profiles b0 .. b1-1: views of the four tensors along B."""
+        return CudaBlock(*(t[b0:b1] for t in self))
+
     @classmethod
     def from_profiles(cls, profiles, kpad: int | None = None,
                       device="cuda", codes: tuple = ()) -> "CudaBlock":
@@ -133,7 +148,8 @@ class CudaBlock(NamedTuple):
                  codes: tuple) -> "CudaBlock":
         """The extended block of read class ``codes`` from a store's
         resident ``inputs``; the transition planes, which do not depend
-        on the codes, are the base-4 block's own tensors."""
+        on the codes, are the base-4 block's own tensors.  For a profile
+        slice, ``inputs.rows`` and ``base.rows`` of the same profiles."""
         return cls(*inputs.tables(codes), base.trans, base.ptrans)
 
 
@@ -349,6 +365,28 @@ def viterbi_plan(K: int, warp_max_k: int = WARP_MAX_K,
 S_N, S_J, S_C, S_E, S_R = range(5)
 
 
+def _logaddexp(a, b):
+    """log(exp(a) + exp(b)) of finite a and b, from exp and log1p: on the
+    CPU their kernels give an element the same bits wherever it lies in
+    a tensor, where torch.logaddexp's vector body and scalar tail differ,
+    so that a (read, profile) cell does not depend on which other
+    profiles share its block."""
+    return torch.maximum(a, b) + torch.log1p(torch.exp(-(a - b).abs()))
+
+
+def _logsumexp(x, dim: int):
+    """torch.logsumexp over the last dim; over dim 0 (the five lookback
+    slots) a sum of the slots in order, for the reason of _logaddexp."""
+    if dim != 0:
+        return torch.logsumexp(x, dim)
+    m = torch.amax(x, 0)
+    e = torch.exp(x - m).unbind(0)
+    acc = e[0]
+    for t in e[1:]:
+        acc = acc + t
+    return m + torch.log(acc)
+
+
 def _semiring(name: str):
     """(join, reduce over a dim, inclusive prefix scan along the last
     dim): max = Viterbi, logsumexp = forward (viterbi_pallas.py:165)."""
@@ -356,7 +394,7 @@ def _semiring(name: str):
         return (torch.maximum, torch.amax,
                 lambda x: torch.cummax(x, dim=-1).values)
     if name == "logsumexp":
-        return (torch.logaddexp, torch.logsumexp,
+        return (_logaddexp, _logsumexp,
                 lambda x: torch.logcumsumexp(x, dim=-1))
     raise ValueError(f"unknown semiring {name!r}")
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from deciphon_tpu_torch.ops import viterbi_cuda as vc
+from deciphon_tpu_torch.ops.tables import table_bytes
 from deciphon_tpu_torch.ops.viterbi_torch import NEG
 from deciphon_tpu_torch.parallel.mesh import ScanMesh
 
@@ -93,24 +94,50 @@ def shard_inputs(profiles, kpad: int, tiles: list[Tile]) -> dict:
     return out
 
 
-def extend_tiles(inputs: dict, tiles: list[Tile], codes: tuple
-                 ) -> list[Tile]:
-    """The extended tiles of read class ``codes`` over a block's base-4
-    ``tiles``: each profile shard's tables synthesized once from its
-    ``inputs`` (``shard_inputs``; vc.CudaBlock.extended) and copied to
-    every other tile of its mesh column; the transition planes, which do
-    not depend on the codes, are each base tile's own tensors."""
-    out, first = [], {}
+def ext_slices(tiles: list[Tile], kpad: int, codes: tuple, budget: int
+               ) -> list[tuple[list[Tile], np.ndarray]]:
+    """A block's profile slices for the extended tables of read class
+    ``codes``, in block order: (the base-4 tiles of one profile shard's
+    mesh column, positions in that shard).  Each shard is cut into the
+    fewest runs of consecutive profiles whose fm and fin fit in
+    ``budget`` bytes, of near-equal length; a profile over the budget
+    is a slice alone, and a shard under it one slice."""
+    per = max(1, budget // table_bytes(codes, kpad))
+    columns: dict[int, list[Tile]] = {}
     for t in tiles:
-        if t.p not in first:
-            blk = first[t.p] = vc.CudaBlock.extended(inputs[t.p], t.blk,
-                                                     codes)
+        columns.setdefault(t.p, []).append(t)
+    out = []
+    for column in columns.values():
+        n = len(column[0].cols)
+        out += [(column, pos)
+                for pos in np.array_split(np.arange(n), max(1, -(-n // per)))]
+    return out
+
+
+def extend_tiles(inputs: vc.CompactInputs, column: list[Tile], codes: tuple,
+                 pos: np.ndarray) -> list[Tile]:
+    """The extended tiles of read class ``codes`` of one profile slice
+    (``ext_slices``): the profiles ``pos`` of a shard, whose ``inputs``
+    (``shard_inputs``) and base-4 ``column`` are given.  Its tables are
+    synthesized once from its own rows of the inputs
+    (vc.CudaBlock.extended) and copied to every other tile of the
+    column; the transition planes, which do not depend on the codes, are
+    views of each base tile's own tensors (the tensors themselves for a
+    slice of the whole shard)."""
+    b0, b1 = int(pos[0]), int(pos[-1]) + 1
+    whole = b1 - b0 == inputs.B
+    part = inputs if whole else inputs.rows(b0, b1)
+    out, first = [], None
+    for t in column:
+        base = t.blk if whole else t.blk.rows(b0, b1)
+        if first is None:
+            blk = first = vc.CudaBlock.extended(part, base, codes)
         else:
             dev = t.blk.fm.device
-            blk = vc.CudaBlock(first[t.p].fm.to(dev, copy=True),
-                               first[t.p].fin.to(dev, copy=True),
-                               t.blk.trans, t.blk.ptrans)
-        out.append(Tile(t.s, t.p, t.cols, blk))
+            blk = vc.CudaBlock(first.fm.to(dev, copy=True),
+                               first.fin.to(dev, copy=True),
+                               base.trans, base.ptrans)
+        out.append(Tile(t.s, t.p, t.cols[b0:b1], blk))
     return out
 
 

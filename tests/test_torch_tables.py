@@ -286,7 +286,7 @@ def test_store_uploads_the_inputs_once(store, monkeypatch):
         lambda cls, *a: built.append(a[1]) or make(*a)))
     for codes in (("N",), ("R",), ("N", "R")):
         for blk in store.blocks:
-            store.tiles(blk, codes)
+            list(store.tiles(blk, codes))
     assert built == [blk.kpad for blk in store.blocks]
 
 
@@ -303,7 +303,7 @@ def test_mesh_extended_tiles_come_from_shard_inputs(store, codes):
     sharded = Tables(store.db, mesh=mesh)
     for blk, whole in zip(sharded.blocks, store.blocks):
         base = sharded.tiles(blk)
-        ext = sharded.tiles(blk, codes)
+        ext = list(sharded.tiles(blk, codes))
         assert sorted(blk.ext) == sorted({t.p for t in base})
         for p, e in blk.ext.items():
             cols = next(t.cols for t in base if t.p == p)
