@@ -573,7 +573,9 @@ class ScanEngine:
         scan (viterbi_trace.trace_scan): on a card one launch of the
         traceback kernel per chunk of TRACE_BATCH hits of a group, every
         chunk queued before the host waits once.  Under the "oracle"
-        traceback, the f64 oracle per hit instead."""
+        traceback, the f64 oracle per hit instead.  Every hit's match
+        string comes from one batched decode of all their steps
+        (``codec.render_matches``)."""
         p = self.params
         groups = list(self.trace_groups(survivors).items())
         profs = [[self.db.profile(gi) for _, gi, *_ in items]
@@ -592,22 +594,25 @@ class ScanEngine:
                 multi_hits=p.multi_hits, hmmer3_compat=p.hmmer3_compat,
                 device=self.device,
             )
-        hits: list[Hit] = []
         with trace.span("pass2.codec"):
-            for (_, items), ps, res_g in zip(groups, profs, results):
+            rows = [
+                (si, gi, alt, null, lrt, prof, res)
+                for (_, items), ps, res_g in zip(groups, profs, results)
                 for (si, gi, _, alt, null, lrt), prof, res in zip(
-                    items, ps, res_g
-                ):
-                    rec = seqs[si]
-                    hits.append(Hit(
-                        seq_id=rec.seq_id, seq_idx=si, profile_idx=gi,
-                        accession=prof.accession, alt_loglik=alt,
-                        null_loglik=null, lrt=lrt, path=res.path,
-                        match=codec.render_match(
-                            codec.match_steps(prof, rec.data, res.path)
-                        ),
-                    ))
+                    items, ps, res_g)
+            ]
+            matches, nsteps = codec.render_matches(
+                [(prof, seqs[si].data, res.path)
+                 for si, *_, prof, res in rows])
+            hits = [
+                Hit(seq_id=seqs[si].seq_id, seq_idx=si, profile_idx=gi,
+                    accession=prof.accession, alt_loglik=alt,
+                    null_loglik=null, lrt=lrt, path=res.path, match=match)
+                for (si, gi, alt, null, lrt, prof, res), match in zip(
+                    rows, matches)
+            ]
         trace.count("hits_decoded", len(hits))
+        trace.count("codec_steps", nsteps)
         return hits
 
 
