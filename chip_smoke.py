@@ -521,8 +521,7 @@ def phase_trace_menu(dev, clock: float) -> float:
         profs = [p for p, _ in hits]
         encs = [encode(r, codes) for _, r in hits]
         plan = vtr.trace_plan(K)
-        for H, block, eidx, lens in vtr.chunks(profs, encs, K,
-                                               codes or None):
+        for block, eidx, lens in vtr.chunks(profs, encs, K, codes or None):
             for mh, h3 in flags:
                 pk = vtr.pack_trace(block, eidx, lens, mh, h3, dev)
                 out = []
@@ -536,12 +535,12 @@ def phase_trace_menu(dev, clock: float) -> float:
                 what = (f"trace menu {label} multi_hits={mh} "
                         f"hmmer3_compat={h3}")
                 d = compare_ys(ys, pys, lens, what)
-                walks = compare_paths(ys, pys, lens, H, K, what)
+                walks = compare_paths(ys, pys, lens, K, what)
                 same = all(np.array_equal(ys[k], pys[k]) for k in vtr.YS)
                 Lmax = pk.eidx.shape[1]
-                b_ms, b_by = bound(*trace_work(H, block, eidx, lens),
+                b_ms, b_by = bound(*trace_work(block, eidx, lens),
                                    "trace", clock)
-                print(f"{what}: H={H} (padded {len(lens)}) ntab="
+                print(f"{what}: H={len(lens)} ntab="
                       f"{pk.fmT.shape[1]} Lmax={Lmax} plan "
                       f"{trace_plan_str(plan)}: codes equal, VT max|d| "
                       f"{d:.3g}, {walks} paths identical; all rows equal "
@@ -652,7 +651,7 @@ def sweep_chunk(K: int, H: int, nt: int, rng):
         rng.integers(max(2, K // 2), K + 1, H))]
     encs = [encode("".join(rng.choice(list("ACGT"), nt)), ())
             for _ in range(H)]
-    ((_, block, eidx, lens),) = vtr.chunks(profs, encs, K)
+    ((block, eidx, lens),) = vtr.chunks(profs, encs, K)
     return block, eidx, lens
 
 
@@ -687,7 +686,7 @@ def phase_trace_sweep(dev, clock: float, parent: str | None) -> None:
     for K, H, nt, alts in TRACE_SWEEP:
         block, eidx, lens = sweep_chunk(K, H, nt, rng)
         pk = pack(block, eidx, lens)
-        b_ms, b_by = bound(*trace_work(H, block, eidx, lens), "trace",
+        b_ms, b_by = bound(*trace_work(block, eidx, lens), "trace",
                            clock)
         plan = vtr.trace_plan(K)
         ref = vtr.launch_trace(pk).host()
@@ -715,16 +714,15 @@ def phase_trace_sweep(dev, clock: float, parent: str | None) -> None:
     for label, K, hits, codes, flags in trace_cells():
         profs = [p for p, _ in hits]
         encs = [encode(r, codes) for _, r in hits]
-        for H, block, eidx, lens in vtr.chunks(profs, encs, K,
-                                               codes or None):
+        for block, eidx, lens in vtr.chunks(profs, encs, K, codes or None):
             pk = pack(block, eidx, lens)
             same(base[0](pk).host(), vtr.launch_trace(pk).host(),
                  f"menu {label} first design")
             f_ms, d_ms = turns(lambda: base[0](pk),
                                lambda: vtr.launch_trace(pk))
-            b_ms, _ = bound(*trace_work(H, block, eidx, lens), "trace",
+            b_ms, _ = bound(*trace_work(block, eidx, lens), "trace",
                             clock)
-            print(f"first design vs this, menu {label} H={H} Lmax="
+            print(f"first design vs this, menu {label} H={len(lens)} Lmax="
                   f"{pk.eidx.shape[1]}: {f_ms:.3f} ms vs "
                   f"{trace_plan_str(vtr.trace_plan(K))} {d_ms:.3f} ms "
                   f"({f_ms / d_ms:.1f}x), {1e3 * d_ms / pk.eidx.shape[1]:.3f}"
@@ -956,15 +954,15 @@ def trace_launches() -> int:
     return vtr.LAUNCHES[TRACE_NAME]
 
 
-def trace_work(H, block, eidx, lens) -> tuple[int, int]:
+def trace_work(block, eidx, lens) -> tuple[int, int]:
     """(bytes, (node, position) cells) of one traceback launch, over its
-    H real hits (not the copies that pad the hit axis): the fragment
-    rows each read's positions gather, the planes, eidx and specials
-    once, and the codes written (3 B per core node-position, 28 B per
-    hit-position); cells are core nodes x read length."""
+    hits: the fragment rows each read's positions gather, the planes,
+    eidx and specials once, and the codes written (3 B per core
+    node-position, 28 B per hit-position); cells are core nodes x read
+    length."""
     core = np.asarray(block.core_size)
     nbytes = cells = 0
-    for h in range(H):
+    for h in range(len(lens)):
         L, k = int(lens[h]), int(core[h])
         rows = len(np.unique(eidx[h, :L]))
         nbytes += 4 * (rows * (k + 2) + 9 * k + 5 * L + 2) + L * (3 * k + 28)
@@ -997,13 +995,13 @@ def compare_ys(ys, pys, lens, what: str) -> float:
     return worst
 
 
-def compare_paths(ys, pys, lens, H: int, K: int, what: str) -> int:
-    """Walk both versions' codes for the H real hits of non-empty
-    reads; the paths must be identical.  Returns the walks compared."""
+def compare_paths(ys, pys, lens, K: int, what: str) -> int:
+    """Walk both versions' codes for the hits of non-empty reads; the
+    paths must be identical.  Returns the walks compared."""
     from deciphon_tpu_torch.ops import viterbi_trace as vtr
 
     n = 0
-    for h in range(H):
+    for h in range(len(lens)):
         L = int(lens[h])
         if not L:  # an empty read never survives the gate
             continue
@@ -1207,9 +1205,10 @@ def pass2_replay(engine, seqs, hits, dev, clock, what: str) -> dict:
         while True:
             t0 = time.perf_counter()
             try:
-                H, block, eidx, lens = next(chunks)
+                block, eidx, lens = next(chunks)
             except StopIteration:
                 break
+            H = len(lens)
             t1 = time.perf_counter()
             pk = vtr.pack_trace(block, eidx, lens, p.multi_hits,
                                 p.hmmer3_compat, dev)
@@ -1242,14 +1241,14 @@ def pass2_replay(engine, seqs, hits, dev, clock, what: str) -> dict:
                 t[key] += dt
             cw = f"{what} pass 2, group (K={kpad}, {codes or 'ACGT'})"
             rec["worst"] = max(rec["worst"], compare_ys(ys, pys, lens, cw))
-            compare_paths(ys, pys, lens, H, K, cw)
+            compare_paths(ys, pys, lens, K, cw)
             for (si, gi, *_), path, match in zip(items[lo:lo + H], paths,
                                                  matches):
                 hit = by_pair[(si, gi)]
                 if hit.path != path or hit.match != match:
                     raise SystemExit(f"{cw}: hit ({si}, {gi}) differs from "
                                      "the replayed chunk")
-            nb, nc = trace_work(H, block, eidx, lens)
+            nb, nc = trace_work(block, eidx, lens)
             rec["nbytes"] += nb
             rec["cells"] += nc
             rec["chunks"] += 1

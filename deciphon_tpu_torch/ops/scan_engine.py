@@ -4,7 +4,7 @@ The counterpart of deciphon_tpu/ops/scan_engine.py, with the same two
 passes:
 
   pass 1 (device): profiles packed into blocks of one padded width
-    (db/partition.pack_profile_rows) with their fragment tables built on
+    (``profile_blocks``) with their fragment tables built on
     the device; reads split into classes by their set of IUPAC codes
     (scan_engine.py:723-761); every (read, profile) pair of every class
     scored by the CUDA kernel of the scan's semiring (Viterbi, or
@@ -70,7 +70,6 @@ import numpy as np
 import torch
 
 from deciphon_tpu_torch.db.format import TensorDB
-from deciphon_tpu_torch.db.partition import pack_profile_rows
 from deciphon_tpu_torch.models import codec
 from deciphon_tpu_torch.models.alphabet import encode_extended
 from deciphon_tpu_torch.ops import viterbi_cuda as vc
@@ -101,6 +100,42 @@ from deciphon_tpu_torch.utils import trace, xmath
 # with the DB (the whole Pfam-A release's widest block takes 26.5 GB at
 # base 5 and 63.3 GB at base 6)
 EXT_SLICE_BYTES = 8 << 30
+# padding a merge of whole blocks may add, as a share of all the DB's
+# nodes (profile_blocks)
+BLOCK_MERGE_SHARE = 0.01
+
+
+def profile_blocks(core_sizes) -> list[tuple[int, np.ndarray]]:
+    """(width, profile indices) of each block of the store, widest first.
+
+    Each profile, in order of core size descending (stable), takes its
+    LANE-rounded width ``vc.pad_width``: the kernels run one CTA per
+    profile, so a block has no rows to fill.  Each run of equal widths
+    is a block.  Then, from the narrowest block up, a block merges into
+    the next wider one while the padding that merge adds,
+    ``len(block) * (wider - width)``, stays under BLOCK_MERGE_SHARE of
+    all the cores; after each merge the walk starts again from the
+    narrowest.  Each merge is judged alone, so the merges add up: the
+    4,066,991 nodes of portbench's draw of 19,632 profiles fill
+    5,510,560 node slots (x1.355), and its width-1600 block, of cores
+    545-1600, x2.09."""
+    core_sizes = np.asarray(core_sizes)
+    order = np.argsort(-core_sizes, kind="stable")
+    widths = [vc.pad_width(int(k)) for k in core_sizes[order]]
+    cuts = np.flatnonzero(np.diff(widths)) + 1
+    blocks = [(widths[run[0]], order[run]) for run in
+              np.split(np.arange(len(order)), cuts) if len(run)]
+    budget = BLOCK_MERGE_SHARE * float(core_sizes.sum())
+    i = len(blocks) - 1
+    while i > 0:
+        (wide, into), (kpad, idxs) = blocks[i - 1], blocks[i]
+        if len(idxs) * (wide - kpad) <= budget:
+            blocks[i - 1] = (wide, np.concatenate([into, idxs]))
+            del blocks[i]
+            i = len(blocks) - 1
+        else:
+            i -= 1
+    return blocks
 
 
 @dataclass(frozen=True)
@@ -181,18 +216,8 @@ class Tables:
         self.subset = None if subset is None else np.asarray(subset, np.int64)
         sizes = (db.core_sizes if self.subset is None
                  else db.core_sizes[self.subset])
-        # one width per block: each profile at its LANE-rounded width
-        # (the kernel runs one CTA per profile, so there are no sublane
-        # rows to fill), then whole blocks merged upward, each merge
-        # while the padding it adds stays under 1% of the nodes.  The
-        # merges add up: the 4,066,991 nodes of portbench's draw of
-        # 19,632 profiles fill 5,510,560 node slots (x1.355), and its
-        # width-1600 block, of cores 545-1600, x2.09
         self.blocks = []
-        for kpad, _, _, idxs in pack_profile_rows(
-            sizes, lane=vc.LANE, group=1, small_group_kpad=1 << 30,
-            seg=False,
-        ):
+        for kpad, idxs in profile_blocks(sizes):
             if self.subset is not None:
                 idxs = self.subset[idxs]
             self.blocks.append(Block(idxs, kpad))

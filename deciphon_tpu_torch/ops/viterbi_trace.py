@@ -4,8 +4,9 @@ The counterpart of deciphon_tpu/ops/viterbi_trace.py.  Only LRT
 survivors reach it: one DP over a stack of (profile, read) hits with
 per-position argmax codes, then an O(path) walk of the codes on the
 host.  On the card the DP is one launch of the Hopper kernel
-csrc/traceback.cu per chunk of hits (``launch_trace``, the counterpart
-of the jitted ``_trace_scan_batch`` :266; its launch shape per width is
+csrc/traceback.cu per chunk of at most TRACE_BATCH hits, a row and a
+CTA or cluster each (``launch_trace``, the counterpart of the jitted
+``_trace_scan_batch`` :266; its launch shape per width is
 ``trace_plan``'s); ``trace_dp`` is its plain torch version, which the
 CPU runs.  A scan's pass 2 (``trace_scan``) queues every chunk of every
 group before the host waits, once per QUEUE_BYTES of queued chunks;
@@ -465,43 +466,36 @@ def walk(ys, L: int, K: int) -> list[tuple[int, int]]:
 
 def chunks(profs: list, seqs: list[np.ndarray], kpad: int | None = None,
            codes: tuple | None = None):
-    """(H, block, eidx, lens) per chunk of TRACE_BATCH hits, the hit axis
-    padded to a power of two with copies of the chunk's first hit (the
-    reference's viterbi_alt_batch :281): H real hits, host block and
-    eidx of every padded hit."""
+    """(block, eidx, lens) per chunk of at most TRACE_BATCH hits: the
+    host block and eidx of the chunk's real hits, one row each (the card
+    runs a CTA or a cluster per hit, so the hit axis has no shape to
+    fill)."""
     base = 4 + len(codes) if codes else 4
     for lo in range(0, len(profs), TRACE_BATCH):
-        chunk_p = profs[lo : lo + TRACE_BATCH]
         chunk_s = seqs[lo : lo + TRACE_BATCH]
-        H = len(chunk_p)
-        Hp = 1
-        while Hp < H:
-            Hp *= 2
-        pad_p = chunk_p + [chunk_p[0]] * (Hp - H)
-        pad_s = chunk_s + [chunk_s[0]] * (Hp - H)
-        Lp = max(len(s) for s in pad_s)
-        block = build_profile_block(pad_p, kpad=kpad, codes=codes)
+        Lp = max(len(s) for s in chunk_s)
+        block = build_profile_block(profs[lo : lo + TRACE_BATCH], kpad=kpad,
+                                    codes=codes)
         eidx = np.stack([
             end_fragment_indices(
                 fragment_indices(s, pad_to=Lp, base=base), base=base
             )
-            for s in pad_s
+            for s in chunk_s
         ])
-        lens = np.array([len(s) for s in pad_s], np.int32)
-        yield H, block, eidx, lens
+        lens = np.array([len(s) for s in chunk_s], np.int32)
+        yield block, eidx, lens
 
 
 def chunk_shapes(profs: list, seqs: list, kpad: int | None = None,
                  codes: tuple | None = None):
-    """(H, padded H, Lmax, K, ntab) of each chunk of ``chunks``, known
-    before any block is built."""
+    """(H, Lmax, K, ntab) of each chunk of ``chunks``, known before any
+    block is built."""
     ntab = frag_layout(4 + len(codes) if codes else 4)[1] + 1
     for lo in range(0, len(profs), TRACE_BATCH):
         chunk_p = profs[lo : lo + TRACE_BATCH]
-        H = len(chunk_p)
         Lmax = max(len(s) for s in seqs[lo : lo + TRACE_BATCH])
         K = kpad if kpad is not None else max(p.core_size for p in chunk_p)
-        yield H, 1 << (H - 1).bit_length(), Lmax, K, ntab
+        yield len(chunk_p), Lmax, K, ntab
 
 
 def viterbi_alt_batch(
@@ -514,10 +508,11 @@ def viterbi_alt_batch(
     codes: tuple | None = None,
 ) -> list[vr.ViterbiResult]:
     """Traceback of a stack of (profile, encoded read) hits, one DP per
-    chunk of ``chunks``: the kernel on a card, ``trace_dp`` on the CPU;
-    walks stay per hit (``trace_scan`` of one group).  Reads holding the
-    IUPAC ``codes`` (encoded 4+j, alphabet.encode_extended) run on the
-    extended base-(4+D) tables.  The DP is Viterbi under either scan
+    chunk of ``chunks`` (at most TRACE_BATCH hits, a row each): the
+    kernel on a card, ``trace_dp`` on the CPU; walks stay per hit
+    (``trace_scan`` of one group).  Reads holding the IUPAC ``codes``
+    (encoded 4+j, alphabet.encode_extended) run on the extended
+    base-(4+D) tables.  The DP is Viterbi under either scan
     semiring: a forward scan's hits still decode their best path."""
     return trace_scan([(profs, seqs, kpad, codes)], multi_hits,
                       hmmer3_compat, device)[0]
@@ -555,27 +550,27 @@ def _on_card(dev: torch.device) -> bool:
     return dev.type == "cuda"
 
 
-def _chunk_bytes(Hp: int, L: int, K: int, ntab: int) -> int:
+def _chunk_bytes(H: int, L: int, K: int, ntab: int) -> int:
     """Device bytes a queued chunk holds until its launch ends: its
     packed inputs (``TracePack``) and its share of the output buffer."""
-    inputs = 4 * Hp * (ntab * K + 2 * ntab + len(TRACE_PLANES) * K
-                       + 5 * L + 2)
-    return inputs + _layout(L, Hp, K)[1]
+    inputs = 4 * H * (ntab * K + 2 * ntab + len(TRACE_PLANES) * K
+                      + 5 * L + 2)
+    return inputs + _layout(L, H, K)[1]
 
 
 def _windows(groups: list) -> list[list]:
     """The chunks of ``groups`` in queue order, cut into windows of at
     most QUEUE_BYTES (``_chunk_bytes``; a larger chunk is a window of its
-    own): per window its chunks' (group, real hits, output views), laid
+    own): per window its chunks' (group, hits, output views), laid
     out from byte 0 of the output buffer, and the window's end byte."""
     windows, held = [], 0
     for g, (profs, seqs, kpad, codes) in enumerate(groups):
-        for H, Hp, L, K, ntab in chunk_shapes(profs, seqs, kpad, codes):
-            size = _chunk_bytes(Hp, L, K, ntab)
+        for H, L, K, ntab in chunk_shapes(profs, seqs, kpad, codes):
+            size = _chunk_bytes(H, L, K, ntab)
             if not windows or held + size > QUEUE_BYTES:
                 windows.append([[], 0])
                 held = 0
-            views, windows[-1][1] = _layout(L, Hp, K, windows[-1][1])
+            views, windows[-1][1] = _layout(L, H, K, windows[-1][1])
             windows[-1][0].append((g, H, views))
             held += size
     return windows
@@ -637,7 +632,7 @@ def trace_scan(groups: list, multi_hits: bool = True,
         walks = []  # (read lengths, K) per chunk
         for g, H, views in window:
             with trace.span("pass2.pack"):  # the host block build
-                _, block, eidx, lens = next(chunk_iter)
+                block, eidx, lens = next(chunk_iter)
                 pk = card and pack_trace(block, eidx, lens, multi_hits,
                                          hmmer3_compat, dev)
             if views["bpM"][2] != (int(lens.max()), *block.fm.shape[:2]):

@@ -30,6 +30,7 @@ from deciphon_tpu_torch.models import h3reader as ph3reader
 from deciphon_tpu_torch.models import h3writer as ph3writer
 from deciphon_tpu_torch.models import profile as pprofile
 from deciphon_tpu_torch.ops import emissions as pemissions
+from deciphon_tpu_torch.ops import scan_engine as pscan_engine
 from deciphon_tpu_torch.ops import viterbi_ref as pvr
 from deciphon_tpu_torch.server import prod as pprod
 
@@ -99,15 +100,24 @@ def case_fragment_tables(tmp_path):
     return run(pprofile), run(jprofile)
 
 
-def case_pack_profile_rows(tmp_path):
-    sizes = np.random.default_rng(5).integers(2, 900, 60)
+def case_profile_blocks(tmp_path):
+    """The store's blocks against the JAX partitioner at the settings the
+    port once called it with: one profile a row at the 32-lane width."""
+    rng = np.random.default_rng(5)
 
-    def run(mod):
-        return [mod.pack_profile_rows(sizes, lane=lane, group=group,
-                                      small_group_kpad=1 << 30, seg=False)
-                for lane, group in ((32, 1), (128, 16))]
+    def cores(n):  # the benchmark's draw: median 150, sigma 0.8
+        return np.clip(rng.lognormal(np.log(150), 0.8, n), 1,
+                       4096).astype(np.int32)
 
-    return run(ppartition), run(jpartition)
+    draws = [
+        rng.integers(2, 900, 60), cores(4096), cores(19632),
+        np.full(50, 77), np.array([31, 32, 33, 64, 65]), np.array([300]),
+        np.zeros(0, np.int64),
+    ]
+    return ([pscan_engine.profile_blocks(sizes) for sizes in draws],
+            [[(k, i) for k, _, _, i in jpartition.pack_profile_rows(
+                sizes, lane=32, group=1, small_group_kpad=1 << 30,
+                seg=False)] for sizes in draws])
 
 
 def case_balanced_partitions(tmp_path):
@@ -157,7 +167,7 @@ def case_viterbi_ref(tmp_path):
 
 CASES = [
     case_press, case_press_python_reader, case_encode_extended,
-    case_fragment_indices, case_fragment_tables, case_pack_profile_rows,
+    case_fragment_indices, case_fragment_tables, case_profile_blocks,
     case_balanced_partitions, case_codec_render_match,
     case_prod_writer_render, case_viterbi_ref,
 ]

@@ -6,8 +6,9 @@ version, on the CPU.
   same ten backpointer arrays as deciphon_tpu.ops.viterbi_trace.
   _trace_scan_batch, bit for bit, on every row a walk can read (rows <
   seq_len): all four flag pairs, base 4, 5 and 6 tables, dead DD links,
-  a profile of identical flat nodes that forces ties, 1, 3 and 5 hits
-  (padded to 1, 4 and 8) and an empty read beside others.
+  a profile of identical flat nodes that forces ties, chunks of 1, 3
+  and 5 hits (a row each, none a copy) and an empty read beside
+  others.
 - The kernel's packing (``pack_trace``, the plan table ``trace_plan``
   for every width, the output buffer's layout) is checked without a
   card, and ``kernel_mirror``, a numpy copy of csrc/traceback.cu's
@@ -128,14 +129,12 @@ def chunk(case):
         assert got in (codes, ())
         encs.append(enc)
     kpad = max(p.core_size for p in pps) + 3  # padding nodes too
-    ((H, block, eidx, lens),) = ptr.chunks(pps, encs, kpad, codes or None)
-    Hp = len(lens)
-    jpad = jps + [jps[0]] * (Hp - H)
-    jblock = vj.build_profile_block(jpad, kpad=kpad, codes=codes or None)
+    ((block, eidx, lens),) = ptr.chunks(pps, encs, kpad, codes or None)
+    jblock = vj.build_profile_block(jps, kpad=kpad, codes=codes or None)
     for name in block._fields:
         np.testing.assert_array_equal(getattr(block, name),
                                       getattr(jblock, name), err_msg=name)
-    return H, block, jblock, eidx, lens
+    return len(pps), block, jblock, eidx, lens
 
 
 def jax_specials(seq_len, multi_hits, hmmer3_compat, dtype=torch.float32):
@@ -151,13 +150,12 @@ def jax_specials(seq_len, multi_hits, hmmer3_compat, dtype=torch.float32):
 @pytest.mark.parametrize("case,mh,h3", CASES)
 def test_trace_dp_arrays_equal_jax(case, mh, h3, monkeypatch):
     """Every backpointer array and VT of trace_dp equal the JAX DP's,
-    rows < seq_len of every (padded) hit: bit for bit when both take the
+    rows < seq_len of every hit: bit for bit when both take the
     same specials (the JAX package's, patched into trace_dp); with the
     port's own specials the nine code arrays stay equal and VT moves by
     the specials' last bit at most (1e-6 relative)."""
     H, block, jblock, eidx, lens = chunk(case)
-    assert len(lens) == {"flags": 4, "base5": 8, "base6": 8, "ties": 1,
-                         "empty": 4, "wide": 4}[case]
+    assert len(lens) == H
     _, _, jys = jtr._trace_scan_batch(
         tuple(jblock), jnp.asarray(eidx), jnp.asarray(lens), mh, h3)
     assert set(ptr.YS) <= set(jys)
@@ -741,21 +739,28 @@ def test_trace_scan_queues_every_chunk_before_one_wait(scan_db,
     assert got == want
 
 
-def test_chunk_bytes_count_the_packed_chunk():
+def test_chunk_bytes_count_the_packed_chunk(monkeypatch):
     """``_chunk_bytes``, known before a block is built (ntab from the
     read class), is what a queued chunk holds on its device: its packed
-    inputs and its outputs, for base-4 and extended tables."""
+    inputs and its outputs, for base-4 and extended tables.  Each chunk
+    holds exactly its real hits, min(TRACE_BATCH, hits left)."""
+    monkeypatch.setattr(ptr, "TRACE_BATCH", 2)
     for case in ("flags", "base6"):
         profs, pps, reads, codes = hits(case)
         encs = [encode_extended(r)[0] for r in reads]
         codes = codes or None
-        ((H, Hp, L, K, ntab),) = ptr.chunk_shapes(pps, encs, None, codes)
-        ((_, block, eidx, lens),) = ptr.chunks(pps, encs, None, codes)
-        pk = ptr.pack_trace(block, eidx, lens, True, False, "cpu")
-        assert (Hp, ntab, K) == tuple(pk.fmT.shape) and L == int(lens.max())
-        held = sum(x.numel() * x.element_size() for x in pk[:5])
-        assert ptr._chunk_bytes(Hp, L, K, ntab) == held + ptr._layout(
-            L, Hp, K)[1]
+        shapes = list(ptr.chunk_shapes(pps, encs, None, codes))
+        built = list(ptr.chunks(pps, encs, None, codes))
+        assert [len(lens) for _, _, lens in built] == [
+            min(2, len(pps) - lo) for lo in range(0, len(pps), 2)]
+        for (H, L, K, ntab), (block, eidx, lens) in zip(shapes, built,
+                                                        strict=True):
+            pk = ptr.pack_trace(block, eidx, lens, True, False, "cpu")
+            assert (H, ntab, K) == tuple(pk.fmT.shape)
+            assert L == int(lens.max())
+            held = sum(x.numel() * x.element_size() for x in pk[:5])
+            assert ptr._chunk_bytes(H, L, K, ntab) == held + ptr._layout(
+                L, H, K)[1]
 
 
 def test_trace_scan_waits_once_per_window(scan_db, monkeypatch):
