@@ -33,7 +33,10 @@ Phases, each fatal on failure:
      table: a CTA per hit, a cluster of 2 or 4 CTAs per hit) with reads of
      0-600 nt and one of 1200 nt, ragged cores, dead DD links and a
      tie-forcing profile; all four flag pairs at K 40; base-5 and base-6
-     reads; 1 hit and 128 hits.
+     reads; 1 hit and 128 hits.  The kernel runs on tables of the card
+     route (viterbi_trace.pack_chunk), which must be within one f32 ulp
+     of the host block's (the count of entries apart printed), and
+     trace_dp on the host block (build_profile_block).
      Every backpointer array must equal trace_dp's on the rows a walk
      reads (VT within the Viterbi tolerance; it has been 0) and the walked
      paths be identical; each cell prints its plan, kernel ms, us per
@@ -48,14 +51,16 @@ Phases, each fatal on failure:
      codes (tables.LAUNCHES), every pass-1 cell of every class must equal the plain
      version, and no jax may be loaded.  Pass 2 must have launched the
      traceback kernel once per chunk of each (width, class) group, waited
-     on the card once (viterbi_trace.trace_scan) and never called
-     trace_dp; replayed chunk by chunk (host block build, upload, kernel,
-     D2H copy, walk, codec, each timed, and the kernel's share of them)
-     every array equals trace_dp's on the card and every hit's path and
+     on the card once (viterbi_trace.trace_scan), never called
+     trace_dp, and built on the card the tables of every hit it queued
+     (the recorded scan's counter trace_tables); replayed chunk by chunk
+     (reads, the card route's pack, kernel, D2H copy, walk, codec, each
+     timed, and the kernel's share of them) the card route's tables are
+     within one f32 ulp of the host blocks', every array equals
+     trace_dp's on the host blocks, on the card, and every hit's path and
      match string equal the replay's; then pass 2 runs once more as the
-     scan runs it, trace_scan split into its parts (block build, pack,
-     enqueue, the wait for the kernels, the copy, the walks) beside the
-     codec.  Kernel-vs-plain times per class,
+     scan runs it, trace_scan split into its parts (reads, pack, enqueue,
+     the wait for the card, the copy, the walks) beside the codec.  Kernel-vs-plain times per class,
      warm scan seconds and GCUPS are timed with CUDA events, and each
      kernel's bound is computed from the same inputs: the larger of its
      bytes over 3.35 TB/s and its operations over the card's rates (see
@@ -506,24 +511,38 @@ def trace_cells():
 
 def phase_trace_menu(dev, clock: float) -> float:
     """The traceback kernel against trace_dp on the card over the menu
-    of ``trace_cells``: every backpointer array equal on the rows a walk
-    reads (rows < seq_len), VT within the Viterbi tolerance, walked paths
-    identical; one timing line per cell (kernel ms, the min of 3 CUDA-
-    event runs, us per position, share of the bound).  Every (kind, npt)
-    of the plan table must have been launched.  Returns the worst
+    of ``trace_cells``, the kernel on tables of the card route
+    (viterbi_trace.pack_chunk) and trace_dp on the host block
+    (build_profile_block): the tables within one f32 ulp (the count of
+    entries apart printed), every backpointer array equal on the rows a
+    walk reads (rows < seq_len), VT within the Viterbi tolerance, walked
+    paths identical; one timing line per cell (kernel ms, the min of 3
+    CUDA-event runs, us per position, share of the bound).  Every (kind,
+    npt) of the plan table must have been launched.  Returns the worst
     |VT - plain VT|."""
     import torch
 
     from deciphon_tpu_torch.ops import viterbi_trace as vtr
 
     worst, ncells, nwalks, kernels = 0.0, 0, 0, set()
+    entries = apart = most = 0
     for label, K, hits, codes, flags in trace_cells():
         profs = [p for p, _ in hits]
         encs = [encode(r, codes) for _, r in hits]
         plan = vtr.trace_plan(K)
-        for block, eidx, lens in vtr.chunks(profs, encs, K, codes or None):
+        for (chunk_p, eidx, lens), (block, _, _) in zip(
+                vtr.chunk_reads(profs, encs, codes or None),
+                vtr.chunks(profs, encs, K, codes or None), strict=True):
             for mh, h3 in flags:
-                pk = vtr.pack_trace(block, eidx, lens, mh, h3, dev)
+                pk = vtr.pack_chunk(chunk_p, eidx, lens, K, codes, mh, h3,
+                                    dev)
+                if (mh, h3) == flags[0]:  # the tables take no flags
+                    n, bad, top = table_ulps(pk, block)
+                    if top > 1:
+                        raise SystemExit(f"trace menu {label}: card tables "
+                                         f"{top} ulp from the host block's")
+                    entries, apart = entries + n, apart + bad
+                    most = max(most, top)
                 out = []
                 k_ms = timed_ms(lambda: out.append(vtr.launch_trace(pk)),
                                 reps=3)
@@ -542,7 +561,9 @@ def phase_trace_menu(dev, clock: float) -> float:
                                    "trace", clock)
                 print(f"{what}: H={len(lens)} ntab="
                       f"{pk.fmT.shape[1]} Lmax={Lmax} plan "
-                      f"{trace_plan_str(plan)}: codes equal, VT max|d| "
+                      f"{trace_plan_str(plan)}: card tables {bad} of {n} "
+                      f"entries apart from the host block's, at most {top} "
+                      f"ulp; codes equal, VT max|d| "
                       f"{d:.3g}, {walks} paths identical; all rows equal "
                       f"(past seq_len too): {same}; kernel {k_ms:.3f} ms "
                       f"(CUDA events, min of 3), "
@@ -559,9 +580,88 @@ def phase_trace_menu(dev, clock: float) -> float:
                          f"every (kind, npt) of the plan table "
                          f"{sorted(vtr.TRACE_KERNELS)}")
     print(f"trace menu: all {ncells} cells equal trace_dp, {nwalks} paths "
-          f"identical, VT max|d| {worst:.3g}; plans launched: "
+          f"identical, VT max|d| {worst:.3g}; card tables {apart} of "
+          f"{entries} entries apart from the host blocks', at most {most} "
+          f"ulp; plans launched: "
           f"{', '.join(f'{k}/npt{n}' for k, n in sorted(kernels))}")
+    trace_code_sets(dev)
     return worst
+
+
+# read classes of more codes than the menu's, for pass 2's tables on the
+# card: their coefficient matrices (5.1 GB for three codes) go up a
+# column slice at a time
+TRACE_CODE_SETS = (("N", "R", "Y"),)
+
+
+def trace_code_sets(dev) -> None:
+    """Pass 2 on the card for each read class of TRACE_CODE_SETS: a
+    chunk of four hits (cores 20-90, reads of 60-150 nt with every code)
+    packed by the card route, its tables within one f32 ulp of the host
+    block's and the kernel's arrays and paths equal to trace_dp's on the
+    host block; the device memory the pack holds above what was held
+    before it (torch's peak) must stay within its outputs, its rows, a
+    row slice and two column slices of the coefficient matrix
+    (TABLE_SLICE_BYTES each).  Prints the peak, the host matrix's bytes
+    and the pack's time (host clock, card synchronized) against the host
+    block's."""
+    import torch
+
+    from deciphon_tpu_torch.models import frame
+    from deciphon_tpu_torch.models.profile import sample_profile
+    from deciphon_tpu_torch.ops import viterbi_trace as vtr
+    from deciphon_tpu_torch.ops.viterbi_torch import build_profile_block
+
+    rng = np.random.default_rng(29)
+    for codes in TRACE_CODE_SETS:
+        cores = [20, 47, 64, 90]
+        profs = [sample_profile(900 + j, k) for j, k in enumerate(cores)]
+        reads = []
+        for j in range(len(profs)):
+            r = list(rng.choice(list("ACGT"), int(rng.integers(60, 151))))
+            for i, c in enumerate(codes):
+                r[7 * i + j] = c
+            reads.append("".join(r))
+        encs = [encode(r, codes) for r in reads]
+        K = max(cores)
+        ((chunk_p, eidx, lens),) = vtr.chunk_reads(profs, encs, codes)
+        t0 = time.perf_counter()
+        block = build_profile_block(profs, kpad=K, codes=codes)
+        host_s = time.perf_counter() - t0
+        vtr.pack_chunk(chunk_p, eidx, lens, K, codes, True, False, dev)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        pk = vtr.pack_chunk(chunk_p, eidx, lens, K, codes, True, False, dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        outs = sum(x.numel() * x.element_size() for x in pk[:5])
+        room = (outs + vtr._rows_bytes(chunk_p, codes) + vtr.TABLE_SLICE_BYTES
+                + vtr._coef_bytes(codes))
+        what = f"pass 2 tables of {'+'.join(codes)}"
+        n, bad, top = table_ulps(pk, block)
+        if top > 1:
+            raise SystemExit(f"{what}: card tables {top} ulp from the host "
+                             "block's")
+        if peak > room:
+            raise SystemExit(f"{what}: the pack held {peak} B on the card "
+                             f"above what was held, over its {room} B")
+        ys = vtr.launch_trace(pk).host()
+        _, pys = vtr.trace_dp(block, eidx, lens, True, False, dev)
+        d = compare_ys(ys, pys, lens, what)
+        walks = compare_paths(ys, pys, lens, K, what)
+        C = frame.ext_fragment_matrix(profs[0].cfg.epsilon, codes)
+        print(f"{what}: {bad} of {n} entries apart from the host block's, "
+              f"at most {top} ulp; {walks} paths identical, VT max|d| "
+              f"{d:.3g}; pack peak {peak} B above {held} B held (room "
+              f"{room} B; host matrix {C.nbytes} B in "
+              f"{-(-C.shape[1] // vtr._col_step(codes))} column slices); "
+              f"card route {card_s:.4f} s vs host block {host_s:.4f} s "
+              f"(host clock, {len(profs)} hits, {sum(cores)} nodes)")
+        del pk, C
+        torch.cuda.empty_cache()
 
 
 def trace_plan_str(p) -> str:
@@ -652,7 +752,7 @@ def sweep_chunk(K: int, H: int, nt: int, rng):
     encs = [encode("".join(rng.choice(list("ACGT"), nt)), ())
             for _ in range(H)]
     ((block, eidx, lens),) = vtr.chunks(profs, encs, K)
-    return block, eidx, lens
+    return profs, block, eidx, lens
 
 
 def phase_trace_sweep(dev, clock: float, parent: str | None) -> None:
@@ -680,12 +780,12 @@ def phase_trace_sweep(dev, clock: float, parent: str | None) -> None:
             acc.append(timed_ms(fn))
         return min(tf), min(tg)
 
-    def pack(block, eidx, lens):
-        return vtr.pack_trace(block, eidx, lens, True, False, dev)
+    def pack(profs, eidx, lens, K, codes=()):
+        return vtr.pack_chunk(profs, eidx, lens, K, codes, True, False, dev)
 
     for K, H, nt, alts in TRACE_SWEEP:
-        block, eidx, lens = sweep_chunk(K, H, nt, rng)
-        pk = pack(block, eidx, lens)
+        profs, block, eidx, lens = sweep_chunk(K, H, nt, rng)
+        pk = pack(profs, eidx, lens, K)
         b_ms, b_by = bound(*trace_work(block, eidx, lens), "trace",
                            clock)
         plan = vtr.trace_plan(K)
@@ -714,8 +814,10 @@ def phase_trace_sweep(dev, clock: float, parent: str | None) -> None:
     for label, K, hits, codes, flags in trace_cells():
         profs = [p for p, _ in hits]
         encs = [encode(r, codes) for _, r in hits]
-        for block, eidx, lens in vtr.chunks(profs, encs, K, codes or None):
-            pk = pack(block, eidx, lens)
+        for (chunk_p, eidx, lens), (block, _, _) in zip(
+                vtr.chunk_reads(profs, encs, codes or None),
+                vtr.chunks(profs, encs, K, codes or None), strict=True):
+            pk = pack(chunk_p, eidx, lens, K, codes)
             same(base[0](pk).host(), vtr.launch_trace(pk).host(),
                  f"menu {label} first design")
             f_ms, d_ms = turns(lambda: base[0](pk),
@@ -1085,33 +1187,40 @@ def trace_chunks(engine) -> int:
 
 def check_trace_launches(engine, plain_calls: int, what: str) -> int:
     """The scan's pass 2 ran the kernel once per chunk, queued every
-    chunk before one host wait, and never called trace_dp; returns its
-    launches."""
+    chunk before one host wait, never called trace_dp, and built on the
+    card the tables of every hit it queued (the recorded scan's counter
+    ``trace_tables``); returns its launches."""
     n, want = trace_launches(), trace_chunks(engine)
-    if n != want or not n or plain_calls or trace_waits() != 1:
+    tables = engine.last_counts.get("trace_tables")
+    queued = len(engine.last_survivors)
+    if (n != want or not n or plain_calls or trace_waits() != 1
+            or tables != queued):
         raise SystemExit(f"{what}: {n} {TRACE_NAME} launches, want {want} "
-                         f"(> 0), {trace_waits()} host waits (want 1) and "
-                         f"{plain_calls} trace_dp calls (want 0)")
+                         f"(> 0), {trace_waits()} host waits (want 1), "
+                         f"{plain_calls} trace_dp calls (want 0) and "
+                         f"trace_tables {tables} (want the {queued} hits "
+                         "queued)")
     return n
 
 
 def trace_scan_parts(engine, seqs) -> dict:
     """Host seconds of pass 2 over the engine's last survivors, run as
     the scan runs it (ScanEngine._traceback: trace_scan, then the codec),
-    split into trace_scan's parts: block build (chunks), pack and upload
-    (pack_trace), enqueue (launch_trace), the wait for the kernels still
-    running after the last launch and the one copy back (_to_host), the
-    walks; the rest of trace_scan (layout, streams, results), the codec
-    and the whole."""
+    split into trace_scan's parts: the chunks' reads (chunk_reads), their
+    pack (pack_chunk: rows, transitions and uploads on the host, the
+    tables queued on the card), enqueue
+    (launch_trace), the wait for the work still running after the last
+    launch and the one copy back (_to_host), the walks; the rest of
+    trace_scan (layout, streams, results), the codec and the whole."""
     import torch
 
     from deciphon_tpu_torch.ops import viterbi_trace as vtr
 
     t = dict.fromkeys(("build", "pack", "enqueue", "wait", "copy", "walk",
                        "trace_scan"), 0.0)
+    build, pack = "chunk_reads", "pack_chunk"
     real = {n: getattr(vtr, n) for n in (
-        "chunks", "pack_trace", "launch_trace", "_to_host", "walk",
-        "trace_scan")}
+        build, pack, "launch_trace", "_to_host", "walk", "trace_scan")}
 
     def timed(name):
         def run(*a, **k):
@@ -1123,7 +1232,7 @@ def trace_scan_parts(engine, seqs) -> dict:
         return run
 
     def chunks(*a, **k):
-        it = real["chunks"](*a, **k)
+        it = real[build](*a, **k)
         while True:
             t0 = time.perf_counter()
             try:
@@ -1143,12 +1252,13 @@ def trace_scan_parts(engine, seqs) -> dict:
         t["copy"] += time.perf_counter() - t1
         return raw
 
-    key = dict(pack_trace="pack", launch_trace="enqueue", walk="walk",
-               trace_scan="trace_scan")
+    key = {pack: "pack", "launch_trace": "enqueue", "walk": "walk",
+           "trace_scan": "trace_scan"}
     encoded, _ = engine.encode(seqs)
     waits = vtr.HOST_WAITS["pass2"]
     try:
-        vtr.chunks, vtr._to_host = chunks, to_host
+        setattr(vtr, build, chunks)
+        vtr._to_host = to_host
         for n in key:
             setattr(vtr, n, timed(n))
         t0 = time.perf_counter()
@@ -1167,51 +1277,57 @@ def trace_scan_parts(engine, seqs) -> dict:
 def parts_line(t: dict) -> str:
     """``trace_scan_parts``'s seconds on one line."""
     return (f"{t['pass2']:.4f} s (host clock): trace_scan "
-            f"{t['trace_scan']:.4f} s = block build {t['build']:.4f} + pack "
-            f"and upload {t['pack']:.4f} + enqueue {t['enqueue']:.4f} + "
-            f"wait for the kernels {t['wait']:.4f} + copy {t['copy']:.4f} + "
+            f"{t['trace_scan']:.4f} s = reads (or block) build "
+            f"{t['build']:.4f} + pack and upload {t['pack']:.4f} + enqueue "
+            f"{t['enqueue']:.4f} + wait for the card {t['wait']:.4f} + copy "
+            f"{t['copy']:.4f} + "
             f"walks {t['walk']:.4f} + other {t['other']:.4f} s "
             f"({t['waits']} host wait), codec {t['codec']:.4f} s")
 
 
 def pass2_replay(engine, seqs, hits, dev, clock, what: str) -> dict:
     """Pass 2 of the engine's last scan, replayed chunk by chunk through
-    the pieces of trace_scan, each timed: host block build, upload
-    (pack_trace), kernel (CUDA events), D2H copy, walk, codec; then
-    trace_dp on the card on the same chunk.  Every array must equal
-    trace_dp's, the paths be identical, and each survivor's path and
-    match string equal the scan's hit.  Then pass 2 once more as the
-    scan runs it, split by ``trace_scan_parts``."""
+    the pieces of trace_scan, each timed: the chunk's reads (eidx), its
+    pack by the card route (pack_chunk: host rows, uploads, the tables
+    on the card), kernel (CUDA events), D2H copy, walk, codec; then the
+    host block of the CPU route (build_profile_block) and trace_dp on
+    the card on it.  The card route's tables must be within one f32 ulp
+    of the host block's (the count of entries apart printed), every
+    array equal trace_dp's, the paths be identical, and each survivor's
+    path and match string equal the scan's hit.  Then pass 2 once more
+    as the scan runs it, split by ``trace_scan_parts``."""
     import torch
 
     from deciphon_tpu_torch.models import codec
     from deciphon_tpu_torch.ops import viterbi_trace as vtr
+    from deciphon_tpu_torch.ops.viterbi_torch import build_profile_block
 
     p = engine.params
     encoded, _ = engine.encode(seqs)
     by_pair = {(h.seq_idx, h.profile_idx): h for h in hits}
-    t = dict.fromkeys(("build", "upload", "d2h", "walk", "codec",
-                       "plain"), 0.0)
+    t = dict.fromkeys(("build", "pack", "d2h", "walk", "codec",
+                       "host_block", "plain"), 0.0)
     rec = dict(kernel_ms=0.0, worst=0.0, nbytes=0, cells=0, chunks=0,
-               hits=0, block_bytes=0, groups=[])
+               hits=0, block_bytes=0, groups=[], entries=0, apart=0,
+               most=0)
     for (kpad, codes), items in engine.trace_groups(
             engine.last_survivors).items():
         rec["groups"].append(f"{kpad}/{'+'.join(codes) or 'ACGT'}:"
                              f"{len(items)}")
         profs = [engine.db.profile(gi) for _, gi, *_ in items]
-        chunks = vtr.chunks(profs, [encoded[si] for si, *_ in items], kpad,
-                            codes)
+        chunks = vtr.chunk_reads(profs, [encoded[si] for si, *_ in items],
+                                 codes)
         lo = 0
         while True:
             t0 = time.perf_counter()
             try:
-                block, eidx, lens = next(chunks)
+                chunk_p, eidx, lens = next(chunks)
             except StopIteration:
                 break
             H = len(lens)
             t1 = time.perf_counter()
-            pk = vtr.pack_trace(block, eidx, lens, p.multi_hits,
-                                p.hmmer3_compat, dev)
+            pk = vtr.pack_chunk(chunk_p, eidx, lens, kpad, codes,
+                                p.multi_hits, p.hmmer3_compat, dev)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             out = []
@@ -1220,7 +1336,7 @@ def pass2_replay(engine, seqs, hits, dev, clock, what: str) -> dict:
             t3 = time.perf_counter()
             ys = out[0].host()
             t4 = time.perf_counter()
-            K = block.fm.shape[1]
+            K = pk.fmT.shape[2]
             paths = [vtr.walk({k: v[:, h] for k, v in ys.items()},
                               int(lens[h]), K) for h in range(H)]
             t5 = time.perf_counter()
@@ -1231,15 +1347,24 @@ def pass2_replay(engine, seqs, hits, dev, clock, what: str) -> dict:
                                                 profs[lo:lo + H], paths)
             ]
             t6 = time.perf_counter()
+            block = build_profile_block(chunk_p, kpad=kpad, codes=codes)
+            t7 = time.perf_counter()
             _, pys = vtr.trace_dp(block, eidx, lens, p.multi_hits,
                                   p.hmmer3_compat, dev)
-            t7 = time.perf_counter()
-            for key, dt in zip(("build", "upload", "d2h", "walk", "codec",
-                                "plain"),
+            t8 = time.perf_counter()
+            for key, dt in zip(("build", "pack", "d2h", "walk", "codec",
+                                "host_block", "plain"),
                                (t1 - t0, t2 - t1, t4 - t3, t5 - t4,
-                                t6 - t5, t7 - t6)):
+                                t6 - t5, t7 - t6, t8 - t7)):
                 t[key] += dt
             cw = f"{what} pass 2, group (K={kpad}, {codes or 'ACGT'})"
+            n, bad, top = table_ulps(pk, block)
+            if top > 1:
+                raise SystemExit(f"{cw}: card tables {top} ulp from the "
+                                 "host block's")
+            rec["entries"] += n
+            rec["apart"] += bad
+            rec["most"] = max(rec["most"], top)
             rec["worst"] = max(rec["worst"], compare_ys(ys, pys, lens, cw))
             compare_paths(ys, pys, lens, K, cw)
             for (si, gi, *_), path, match in zip(items[lo:lo + H], paths,
@@ -1260,25 +1385,30 @@ def pass2_replay(engine, seqs, hits, dev, clock, what: str) -> dict:
     rec.update(t)
     rec["plain_ms"] = 1e3 * t["plain"]
     b_ms, b_by = bound(rec["nbytes"], rec["cells"], "trace", clock)
-    kernel_path = (t["build"] + t["upload"] + 1e-3 * rec["kernel_ms"]
+    kernel_path = (t["build"] + t["pack"] + 1e-3 * rec["kernel_ms"]
                    + t["d2h"] + t["walk"] + t["codec"])
-    plain_path = t["build"] + t["plain"] + t["walk"] + t["codec"]
+    plain_path = (t["build"] + t["host_block"] + t["plain"] + t["walk"]
+                  + t["codec"])
     print(f"{what} pass 2 replay: {rec['hits']} hits in {rec['chunks']} "
           f"chunks (width/class:hits {' '.join(rec['groups'])}; largest "
-          f"host match table {rec['block_bytes']} B), every array equal "
-          f"trace_dp's on the card (VT max|d| "
+          f"host match table {rec['block_bytes']} B); card tables "
+          f"{rec['apart']} of {rec['entries']} entries apart from the host "
+          f"blocks', at most {rec['most']} ulp; every array equal "
+          f"trace_dp's on the host blocks, on the card (VT max|d| "
           f"{rec['worst']:.3g}), paths and match strings equal the scan's; "
-          f"host block build {t['build']:.4f} s, upload {t['upload']:.4f} "
-          f"s, kernel {rec['kernel_ms']:.3f} ms (CUDA events), D2H "
-          f"{t['d2h']:.4f} s, walk {t['walk']:.4f} s, codec "
-          f"{t['codec']:.4f} s: {kernel_path:.4f} s (host clock), the "
-          f"kernel {100 * 1e-3 * rec['kernel_ms'] / kernel_path:.2f}% of "
-          f"it, the host block build {100 * t['build'] / kernel_path:.1f}"
-          f"%, the codec {100 * t['codec'] / kernel_path:.1f}%, the walk "
-          f"{100 * t['walk'] / kernel_path:.2f}%; with "
-          f"trace_dp on the card instead ({t['plain']:.4f} s): "
-          f"{plain_path:.4f} s; kernel bound {b_ms:.4f} ms by {b_by} "
-          f"({rec['nbytes']} B, {rec['cells']} node-positions), kernel at "
+          f"reads {t['build']:.4f} s, card-route pack (host rows, uploads, "
+          f"tables on the card) {t['pack']:.4f} s, kernel "
+          f"{rec['kernel_ms']:.3f} ms (CUDA events), D2H {t['d2h']:.4f} s, "
+          f"walk {t['walk']:.4f} s, codec {t['codec']:.4f} s: "
+          f"{kernel_path:.4f} s (host clock), the kernel "
+          f"{100 * 1e-3 * rec['kernel_ms'] / kernel_path:.2f}% of it, the "
+          f"pack {100 * t['pack'] / kernel_path:.1f}%, the codec "
+          f"{100 * t['codec'] / kernel_path:.1f}%, the walk "
+          f"{100 * t['walk'] / kernel_path:.2f}%; the host blocks of the "
+          f"CPU route {t['host_block']:.4f} s, and with trace_dp on the "
+          f"card on them ({t['plain']:.4f} s): {plain_path:.4f} s; kernel "
+          f"bound {b_ms:.4f} ms by {b_by} ({rec['nbytes']} B, "
+          f"{rec['cells']} node-positions), kernel at "
           f"{100 * b_ms / max(rec['kernel_ms'], 1e-9):.2f}% of it")
     print(f"{what} pass 2 as the scan runs it: "
           f"{parts_line(rec['scan_parts'])}")
@@ -1674,6 +1804,7 @@ def phase_main_path(dev, workdir: str, clock: float):
     from deciphon_tpu_torch.ops.scan_engine import (
         ScanEngine, ScanParams, SeqRecord,
     )
+    from deciphon_tpu_torch.utils import trace
 
     db, hmm, dtp, reads, planted, fasta = main_path_inputs(workdir)
     seqs = [SeqRecord(i + 1, f"r{i + 1}", r) for i, r in enumerate(reads)]
@@ -1702,7 +1833,7 @@ def phase_main_path(dev, workdir: str, clock: float):
               f"{time.perf_counter() - t0:.2f} s")
         encoded, classes = engine.encode(seqs)
         reset_launches()
-        with counting_trace_dp() as plain_calls:
+        with counting_trace_dp() as plain_calls, trace.recording():
             hits = engine.scan(seqs)
         launches = dict(vc.LAUNCHES)
         tb = check_trace_launches(engine, plain_calls[0],
@@ -1822,11 +1953,11 @@ def phase_main_path(dev, workdir: str, clock: float):
               f"(host clock {min(h for _, h in scan_s):.4f} s), "
               f"{cells / warm / 1e9:.2f} GCUPS (3 x sum len x sum core, "
               f"{len(reads)} reads)")
-        trace = pass2_replay(engine, seqs, hits, dev, clock,
-                             f"main path {algo}")
-        trace["launches"] = tb
-        trace["pass2_s"] = tm["pass2"]
-        ctx.setdefault("trace", {})[semiring] = trace
+        replay = pass2_replay(engine, seqs, hits, dev, clock,
+                              f"main path {algo}")
+        replay["launches"] = tb
+        replay["pass2_s"] = tm["pass2"]
+        ctx.setdefault("trace", {})[semiring] = replay
         bound_ms, bound_by = bound(nbytes, node_pos, semiring, clock)
         print(f"bound {KERNEL_NAME[semiring]}: {bound_ms:.3f} ms by "
               f"{bound_by} ({1e12 * ops_seconds(semiring, clock):.4f} ps of "
@@ -1842,16 +1973,40 @@ def phase_main_path(dev, workdir: str, clock: float):
     return out, ctx
 
 
-def ulps_apart(a, b):
-    """Largest distance in f32 units in the last place between two f32
-    tensors of one shape (on the float line ordered as integers)."""
+def ulps(a, b):
+    """Distances in f32 units in the last place between two f32 tensors
+    of one shape (on the float line ordered as integers), int64."""
     import torch
 
     def key(t):
         i = t.contiguous().view(torch.int32).to(torch.int64)
         return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
 
-    return int((key(a) - key(b)).abs().max()) if a.numel() else 0
+    return (key(a) - key(b)).abs()
+
+
+def ulps_apart(a, b):
+    """Largest of ``ulps``: 0 for empty tensors."""
+    return int(ulps(a, b).max()) if a.numel() else 0
+
+
+def table_ulps(pk, block) -> tuple[int, int, int]:
+    """(entries, entries more than 0 ulp apart, the most ulps apart) of
+    the pass-2 tables of ``pk`` (viterbi_trace.pack_chunk, the card
+    route) against the host block ``block`` of build_profile_block: fmT
+    against fm transposed, fin against fi and fn stacked."""
+    import torch
+
+    host = {"fmT": block.fm.transpose(0, 2, 1),
+            "fin": np.stack([block.fi, block.fn], 1)}
+    n = bad = top = 0
+    for name in ("fmT", "fin"):
+        got = getattr(pk, name)
+        d = ulps(got, torch.from_numpy(np.ascontiguousarray(
+            host[name])).to(got.device))
+        n, bad = n + d.numel(), bad + int((d > 0).sum())
+        top = max(top, int(d.max()))
+    return n, bad, top
 
 
 def phase_ext_tables(db, dev) -> dict:
@@ -2018,6 +2173,7 @@ def phase_sharded(ctx) -> dict:
 
     from deciphon_tpu_torch.ops import viterbi_cuda as vc
     from deciphon_tpu_torch.ops.scan_engine import ScanEngine, ScanParams
+    from deciphon_tpu_torch.utils import trace
 
     db, seqs = ctx["db"], ctx["seqs"]
     mesh, kind = scan_mesh()
@@ -2034,7 +2190,7 @@ def phase_sharded(ctx) -> dict:
         print(f"sharded {algo}: {len(engine.blocks)} blocks, {ntiles} tiles, "
               f"base-4 tables built in {time.perf_counter() - t0:.2f} s")
         reset_launches()
-        with counting_trace_dp() as plain_calls:
+        with counting_trace_dp() as plain_calls, trace.recording():
             hits = engine.scan(seqs)
         launches = dict(vc.LAUNCHES)
         tb = check_trace_launches(engine, plain_calls[0], f"sharded {algo}")

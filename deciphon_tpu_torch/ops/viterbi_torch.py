@@ -86,17 +86,27 @@ def build_profile_block(
     fm = np.full((B, K, ntab), NEG, dtype)
     fi = np.empty((B, ntab), dtype)
     fn = np.empty((B, ntab), dtype)
-    arrs = {n: np.full((B, K), NEG, dtype) for n in TRANS_NAMES}
     core = np.empty(B, np.int32)
     for b, p in enumerate(profiles):
         fmat, fins, fnull = p.fragment_tables(base=base, codes=codes)
         fm[b, : p.core_size] = _clamp(fmat, dtype)
         fi[b] = _clamp(fins, dtype)
         fn[b] = _clamp(fnull, dtype)
+        core[b] = p.core_size
+    return ProfileBlock(fm=fm, fi=fi, fn=fn, core_size=core,
+                        **stack_transitions(profiles, K, dtype))
+
+
+def stack_transitions(profiles: list[ProteinProfile], K: int,
+                      dtype=np.float32) -> dict[str, np.ndarray]:
+    """The TRANS_NAMES arrays [B, K] of a block of ``profiles`` padded to
+    width K: each profile's transitions clamped to NEG and cast to
+    ``dtype``, NEG past its core."""
+    arrs = {n: np.full((len(profiles), K), NEG, dtype) for n in TRANS_NAMES}
+    for b, p in enumerate(profiles):
         for n in TRANS_NAMES:
             arrs[n][b, : p.core_size] = _clamp(getattr(p, n), dtype)
-        core[b] = p.core_size
-    return ProfileBlock(fm=fm, fi=fi, fn=fn, core_size=core, **arrs)
+    return arrs
 
 
 def end_fragment_indices(fidx: np.ndarray, base: int = 4) -> np.ndarray:

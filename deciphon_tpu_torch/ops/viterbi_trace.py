@@ -13,6 +13,13 @@ group before the host waits, once per QUEUE_BYTES of queued chunks;
 ``viterbi_alt`` traces one hit.  The entry points run on the card unless
 given ``device="cpu"``, and raise without a GPU.
 
+Pass 2 scores from the host's f64 fragment tables cast to f32
+(ProteinProfile.fragment_tables, clamped to NEG): on the CPU from
+``build_profile_block``; on a card the same f64 product, log, clamp and
+cast run on the card (``card_tables``), from each hit's linear rows
+uploaded in one copy a chunk (``table_rows``), so the host forms no
+table.
+
 Tie-breaking replicates the reference exactly: candidates flatten in
 (fragment length ascending, origin ascending) order and the first maximum
 wins (``torch.argmax`` returns the first index of the max); E takes every
@@ -25,22 +32,27 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
+import itertools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from deciphon_tpu_torch.models import frame
 from deciphon_tpu_torch.models import state as st
 from deciphon_tpu_torch.models.frame import frag_layout
 from deciphon_tpu_torch.ops import viterbi_ref as vr
 from deciphon_tpu_torch.ops.emissions import fragment_indices
 from deciphon_tpu_torch.ops.viterbi_torch import (
     NEG,
+    TRANS_NAMES,
     ProfileBlock,
     build_profile_block,
     end_fragment_indices,
     resolve_device,
     specials,
+    stack_transitions,
 )
 from deciphon_tpu_torch.utils import trace
 
@@ -65,6 +77,13 @@ STREAMS = 8
 # device bytes of pass 2's queued chunks (inputs and outputs) before the
 # host waits for them (trace_scan): one wait for a scan whose chunks fit
 QUEUE_BYTES = 2 << 30
+# device bytes of the f64 temporaries (and the f32 result) of one row
+# slice of a chunk's fragment tables on a card (card_tables)
+TABLE_SLICE_BYTES = 64 << 20
+# read classes whose fragment tables come from the codon marginals
+# (frame.fragment_table); the others' from the codon probabilities
+# (frame.fragment_table_codes), as ProteinProfile.fragment_tables picks
+MARG_CODES = ((), ("N",))
 
 
 def _push(ring, new):
@@ -75,22 +94,22 @@ def _shift_k(a):  # along the node axis: a[..., k] -> a[..., k-1]
     return torch.cat([torch.full_like(a[..., :1], NEG), a[..., :-1]], -1)
 
 
-def _upload(block: ProfileBlock, eidx: np.ndarray, seq_len: np.ndarray,
+def _t(a, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _upload(arrs: dict, eidx: np.ndarray, seq_len: np.ndarray,
             multi_hits: bool, hmmer3_compat: bool, dev: torch.device):
     """A chunk's tensors on ``dev`` for the DP, plain or kernel: the
-    block's tables and transitions, eidx (int64), the specials and the
-    D-chain's cdd, md_next and cdd_next, computed by the same torch calls
-    for both versions (a cumsum on the card rounds as a parallel scan)."""
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    d = {n: t(getattr(block, n)) for n in (
-        "fm", "fi", "fn", "entry", "mm_in", "im_in", "dm_in", "md_in",
-        "dd_in", "mi", "ii",
-    )}
-    H = d["fm"].shape[0]
-    xt = specials(t(np.asarray(seq_len, np.int32)), multi_hits,
+    tables fm, fi and fn of ``arrs`` if it has them (a host block's,
+    ``ProfileBlock._asdict()``), its transitions (TRANS_NAMES arrays
+    [H, K]), eidx (int64), the specials and the D-chain's cdd, md_next
+    and cdd_next, computed by the same torch calls for both versions (a
+    cumsum on the card rounds as a parallel scan)."""
+    d = {n: _t(arrs[n], dev) for n in ("fm", "fi", "fn", *TRANS_NAMES)
+         if n in arrs}
+    H = d["entry"].shape[0]
+    xt = specials(_t(np.asarray(seq_len, np.int32), dev), multi_hits,
                   hmmer3_compat)
     d.update(NN=xt["NN"], NB=xt["NB"], EJ=xt["EJ"], EC=xt["EC"])
     dd_safe = torch.clamp_min(d["dd_in"], NEG / 1e6)
@@ -99,7 +118,7 @@ def _upload(block: ProfileBlock, eidx: np.ndarray, seq_len: np.ndarray,
     d["neg1"] = torch.full((H, 1), NEG, device=dev)
     d["md_next"] = torch.cat([d["md_in"][:, 1:], d["neg1"]], 1)
     d["cdd_next"] = torch.cat([d["cdd"][:, 1:], d["cdd"][:, -1:]], 1)
-    d["eidx"] = t(np.asarray(eidx, np.int64))
+    d["eidx"] = _t(np.asarray(eidx, np.int64), dev)
     return d
 
 
@@ -116,7 +135,8 @@ def trace_dp(block: ProfileBlock, eidx: np.ndarray, seq_len: np.ndarray,
       bpB [L, H] 0=S 1=N 2=E 3=J;  bpT [L, H] 0=E 1=C
     """
     dev = torch.device(device)
-    d = _upload(block, eidx, seq_len, multi_hits, hmmer3_compat, dev)
+    d = _upload(block._asdict(), eidx, seq_len, multi_hits,
+                hmmer3_compat, dev)
     fm, fi, fn = d["fm"], d["fi"], d["fn"]
     entry, mm_in, im_in, dm_in, mi, ii = (
         d[n] for n in ("entry", "mm_in", "im_in", "dm_in", "mi", "ii")
@@ -292,22 +312,224 @@ class TracePack(NamedTuple):
     EC: float
 
 
-def pack_trace(block: ProfileBlock, eidx: np.ndarray, seq_len: np.ndarray,
-               multi_hits: bool, hmmer3_compat: bool, device) -> TracePack:
-    """The kernel's inputs: trace_dp's uploaded tensors (``_upload``), the
-    match tables transposed so that a fragment row is contiguous along
-    the nodes, the planes stacked, eidx cut to the chunk's Lmax rows."""
-    d = _upload(block, eidx, seq_len, multi_hits, hmmer3_compat,
-                torch.device(device))
+def pack_chunk(profs: list, eidx: np.ndarray, seq_len: np.ndarray,
+               kpad: int | None, codes: tuple | None, multi_hits: bool,
+               hmmer3_compat: bool, device, stream=None) -> TracePack:
+    """The kernel's inputs for a chunk of hits (one profile a hit) at
+    width ``kpad`` (the widest core if None): the fragment tables
+    computed on ``device`` by ``card_tables`` from the rows of
+    ``table_rows``, uploaded in one copy (from pinned memory on a card),
+    the match tables laid out so that a fragment row is contiguous along
+    the nodes; trace_dp's other uploaded tensors (``_upload``), the
+    planes stacked, eidx cut to the chunk's Lmax rows.  On a card,
+    ``stream`` (if given) runs the tables' work after the uploads.
+    Counts the chunk's hits in the scan's counter ``trace_tables``."""
+    dev = torch.device(device)
+    codes = tuple(codes or ())
+    K = kpad if kpad is not None else max(p.core_size for p in profs)
+    rows = table_rows(profs, codes, K, pin=dev.type == "cuda").to(
+        dev, non_blocking=True)
+    d = _upload(stack_transitions(profs, K), eidx, seq_len, multi_hits,
+                hmmer3_compat, dev)
+    ctx = contextlib.nullcontext()
+    if stream is not None:
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        rows.record_stream(stream)  # freed only after the tables' work
+        ctx = torch.cuda.stream(stream)
+    with ctx:
+        fmT, fin = card_tables(rows, [p.core_size for p in profs],
+                               [p.cfg.epsilon for p in profs], K, codes)
+    trace.count("trace_tables", len(profs))
     Lmax = int(np.max(seq_len)) if len(seq_len) else 0
     return TracePack(
-        fmT=d["fm"].transpose(1, 2).contiguous(),
-        fin=torch.stack([d["fi"], d["fn"]], 1).contiguous(),
+        fmT=fmT, fin=fin,
         planes=torch.stack([d[n] for n in TRACE_PLANES], 1).contiguous(),
         eidx=d["eidx"][:, :Lmax].to(torch.int32).contiguous(),
         sp=torch.stack([d["NN"], d["NB"]], 1).contiguous(),
         EJ=float(d["EJ"]), EC=float(d["EC"]),
     )
+
+
+def _ntab(codes: tuple | None) -> int:
+    """Fragment rows of a table of read class ``codes``, the sentinel's
+    too."""
+    return frag_layout(4 + len(codes or ()))[1] + 1
+
+
+def _row_width(codes: tuple) -> tuple[int, int]:
+    """(W, S) of a table row of read class ``codes``: its linear pattern
+    marginals and background masses, as frame.fragment_table (codes ()
+    and ("N",)) or frame.fragment_table_codes forms them."""
+    if codes in MARG_CODES:
+        return 125, 5
+    S = 5 + len(codes)
+    return S**3, S
+
+
+def _linear(p, part: str, codes: tuple) -> np.ndarray:
+    """[..., W + S] f64: the linear pattern marginals and masses of the
+    ``part`` ("match", "insert" or "null") rows of profile ``p``, by the
+    host tables' own calls on its log rows."""
+    q = getattr(p, f"{part}_q")
+    if codes in MARG_CODES:
+        return np.concatenate([np.exp(getattr(p, f"{part}_marg")),
+                               np.exp(q)], -1)
+    return np.concatenate([
+        np.exp(getattr(p, f"{part}_codonp")) @ frame.ext_agg(codes).T,
+        frame.ext_q(q, codes)], -1)
+
+
+def table_rows(profs: list, codes: tuple, K: int,
+               pin: bool = False) -> torch.Tensor:
+    """A chunk's table inputs in one host buffer of bytes (pinned if
+    ``pin``), as ``card_tables`` reads it: rows [R, W + S] f64
+    (``_row_width``), R = the hits' cores then two a hit, each hit's
+    insert and null rows, each row the linear inputs of its fragment
+    table (``_linear``: what ProteinProfile.fragment_tables forms from
+    the profile's log rows); then each match row's place h * K + k in
+    the chunk, int64."""
+    W, S = _row_width(codes)
+    cores = [p.core_size for p in profs]
+    Rm = sum(cores)
+    R = Rm + 2 * len(profs)
+    nrow = 8 * R * (W + S)
+    buf = torch.empty(nrow + 8 * Rm, dtype=torch.uint8, pin_memory=pin)
+    raw = buf.numpy()
+    rows = raw[:nrow].view(np.float64).reshape(R, W + S)
+    where = raw[nrow:].view(np.int64)
+    r = 0
+    for h, p in enumerate(profs):
+        rows[r:r + p.core_size] = _linear(p, "match", codes)
+        where[r:r + p.core_size] = h * K + np.arange(p.core_size)
+        r += p.core_size
+        rows[Rm + 2 * h] = _linear(p, "insert", codes)
+        rows[Rm + 2 * h + 1] = _linear(p, "null", codes)
+    return buf
+
+
+@functools.cache
+def fragment_coefs(eps: float, codes: tuple, device) -> torch.Tensor:
+    """frame.fragment_matrix at base 4 or 5, the f64 coefficient matrix
+    of read class () or ("N",) (MARG_CODES), on ``device`` (a
+    torch.device with its index), uploaded once and kept: 34 and 98 MB
+    an epsilon."""
+    return torch.as_tensor(frame.fragment_matrix(eps, 4 + len(codes)),
+                           device=device)
+
+
+def _col_step(codes: tuple) -> int:
+    """Columns of one slice of the coefficient matrix of read class
+    ``codes`` on the card: all of them for MARG_CODES, whose matrices
+    are kept; else as many as TABLE_SLICE_BYTES holds."""
+    W, S = _row_width(codes)
+    if codes in MARG_CODES:
+        return _ntab(codes)
+    return max(1, min(_ntab(codes), TABLE_SLICE_BYTES // (8 * S * S * W)))
+
+
+@functools.cache
+def _host_slices(eps: float, codes: tuple, step: int) -> tuple:
+    """The host's frame.ext_fragment_matrix of read class ``codes`` cut
+    into contiguous slices of ``step`` columns, (first column, end
+    column, array) each, made once and kept beside frame's own copy, so
+    that each chunk uploads them with plain copies."""
+    C = frame.ext_fragment_matrix(eps, codes)
+    return tuple((c0, min(c0 + step, C.shape[1]),
+                  np.ascontiguousarray(C[:, c0:c0 + step]))
+                 for c0 in range(0, C.shape[1], step))
+
+
+def _coef_slices(eps: float, codes: tuple, dev: torch.device):
+    """(first column, end column, C[:, first:end] on ``dev``) of the f64
+    coefficient matrix of read class ``codes``: for MARG_CODES one
+    slice, the kept matrix of ``fragment_coefs``; for other code sets
+    (1.25 GB for two codes, 5.1 GB for three, more for each code after)
+    the host's slices (``_host_slices``, ``_col_step`` columns each)
+    uploaded one at a time, on the current stream, each dropped after
+    its use, so that the card holds at most two slices of it for any
+    code set."""
+    if codes in MARG_CODES:
+        C = fragment_coefs(eps, codes, dev)
+        yield 0, C.shape[1], C
+        return
+    for c0, c1, part in _host_slices(eps, codes, _col_step(codes)):
+        yield c0, c1, torch.from_numpy(part).to(dev)
+
+
+@functools.cache
+def _tables_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The stream of pass 2's tables on card ``dev``, one a process:
+    cuBLAS keeps a workspace for every stream its products run on."""
+    return torch.cuda.Stream(dev)
+
+
+def _coef_bytes(codes: tuple) -> int:
+    """Device bytes of read class ``codes``' coefficient matrix while
+    ``card_tables`` runs: the kept matrix for MARG_CODES, two column
+    slices (``_coef_slices``) for other code sets."""
+    W, S = _row_width(codes)
+    if codes in MARG_CODES:
+        return 8 * S * S * W * _ntab(codes)
+    return 2 * 8 * S * S * W * _col_step(codes)
+
+
+def _slice_rows(codes: tuple) -> int:
+    """Rows of one slice of ``card_tables`` within TABLE_SLICE_BYTES: a
+    row's pair products, products with its marginals and probabilities
+    over a column slice (``_col_step``), f64, and its f32 result."""
+    W, S = _row_width(codes)
+    cols = _col_step(codes)
+    return max(1, TABLE_SLICE_BYTES // (8 * (S * S + S * S * W + cols)
+                                        + 4 * cols))
+
+
+def card_tables(rows: torch.Tensor, cores: list, eps: list, K: int,
+                codes: tuple):
+    """(fmT [H, ntab, K], fin [H, 2, ntab]) f32 of a chunk on the device
+    of ``rows`` (``table_rows``' buffer there): per row, the products of
+    its masses' pairs with its pattern marginals times the f64
+    coefficient matrix of its profile's epsilon, a column slice at a
+    time (``_coef_slices``), its log, the sentinel column -inf, clamped
+    to NEG and cast to f32, frame.fragment_table's order of operations
+    and build_profile_block's clamp; a match row written to its node's
+    column of fmT, the nodes past a core NEG, as build_profile_block pads
+    them.  Rows go in slices of ``_slice_rows``."""
+    W, S = _row_width(codes)
+    ntab = _ntab(codes)
+    H, Rm = len(cores), sum(cores)
+    R = Rm + 2 * H
+    nrow = 8 * R * (W + S)
+    x = rows[:nrow].view(torch.float64).view(R, W + S)
+    where = rows[nrow:].view(torch.int64)
+    dev = rows.device
+    fmT = torch.full((H, ntab, K), NEG, dtype=torch.float32, device=dev)
+    fin = torch.empty((H, 2, ntab), dtype=torch.float32, device=dev)
+    fin_rows = fin.view(2 * H, ntab)
+    step = _slice_rows(codes)
+    start = np.concatenate([[0], np.cumsum(cores)]).astype(int)
+    h = 0
+    for e, run in itertools.groupby(eps):  # a run of hits of one epsilon
+        a, h = h, h + len(list(run))
+        for c0, c1, C in _coef_slices(float(e), codes, dev):
+            for lo, hi, match in ((start[a], start[h], True),
+                                  (Rm + 2 * a, Rm + 2 * h, False)):
+                for r0 in range(lo, hi, step):
+                    r1 = min(r0 + step, hi)
+                    q = x[r0:r1, W:]
+                    qq = (q[:, :, None] * q[:, None, :]).reshape(
+                        r1 - r0, S * S)
+                    D = (qq[:, :, None] * x[r0:r1, None, :W]).reshape(
+                        r1 - r0, S * S * W)
+                    lp = (D @ C).log_()
+                    if c1 == ntab:
+                        lp[:, -1] = -np.inf
+                    tab = lp.clamp_min_(NEG).to(torch.float32)
+                    if match:
+                        at = where[r0:r1]
+                        fmT[at // K, c0:c1, at % K] = tab
+                    else:
+                        fin_rows[r0 - Rm:r1 - Rm, c0:c1] = tab
+    return fmT, fin
 
 
 class TraceOut(NamedTuple):
@@ -466,16 +688,22 @@ def walk(ys, L: int, K: int) -> list[tuple[int, int]]:
 
 def chunks(profs: list, seqs: list[np.ndarray], kpad: int | None = None,
            codes: tuple | None = None):
-    """(block, eidx, lens) per chunk of at most TRACE_BATCH hits: the
-    host block and eidx of the chunk's real hits, one row each (the card
-    runs a CTA or a cluster per hit, so the hit axis has no shape to
-    fill)."""
+    """(block, eidx, lens) per chunk of ``chunk_reads``: the host block of
+    the chunk's real hits, one row each."""
+    for chunk_p, eidx, lens in chunk_reads(profs, seqs, codes):
+        yield build_profile_block(chunk_p, kpad=kpad, codes=codes), eidx, lens
+
+
+def chunk_reads(profs: list, seqs: list[np.ndarray],
+                codes: tuple | None = None):
+    """(profiles, eidx, lens) per chunk of at most TRACE_BATCH hits: the
+    chunk's real hits, one row each (the card runs a CTA or a cluster per
+    hit, so the hit axis has no shape to fill), and their reads' eidx
+    and lengths."""
     base = 4 + len(codes) if codes else 4
     for lo in range(0, len(profs), TRACE_BATCH):
         chunk_s = seqs[lo : lo + TRACE_BATCH]
         Lp = max(len(s) for s in chunk_s)
-        block = build_profile_block(profs[lo : lo + TRACE_BATCH], kpad=kpad,
-                                    codes=codes)
         eidx = np.stack([
             end_fragment_indices(
                 fragment_indices(s, pad_to=Lp, base=base), base=base
@@ -483,14 +711,14 @@ def chunks(profs: list, seqs: list[np.ndarray], kpad: int | None = None,
             for s in chunk_s
         ])
         lens = np.array([len(s) for s in chunk_s], np.int32)
-        yield block, eidx, lens
+        yield profs[lo : lo + TRACE_BATCH], eidx, lens
 
 
 def chunk_shapes(profs: list, seqs: list, kpad: int | None = None,
                  codes: tuple | None = None):
     """(H, Lmax, K, ntab) of each chunk of ``chunks``, known before any
     block is built."""
-    ntab = frag_layout(4 + len(codes) if codes else 4)[1] + 1
+    ntab = _ntab(codes)
     for lo in range(0, len(profs), TRACE_BATCH):
         chunk_p = profs[lo : lo + TRACE_BATCH]
         Lmax = max(len(s) for s in seqs[lo : lo + TRACE_BATCH])
@@ -558,18 +786,34 @@ def _chunk_bytes(H: int, L: int, K: int, ntab: int) -> int:
     return inputs + _layout(L, H, K)[1]
 
 
-def _windows(groups: list) -> list[list]:
+def _rows_bytes(profs: list, codes: tuple | None) -> int:
+    """Device bytes of a chunk's ``table_rows`` buffer on a card."""
+    W, S = _row_width(tuple(codes or ()))
+    nodes = sum(p.core_size for p in profs)
+    return 8 * ((nodes + 2 * len(profs)) * (W + S) + nodes)
+
+
+def _windows(groups: list, card: bool = False) -> list[list]:
     """The chunks of ``groups`` in queue order, cut into windows of at
-    most QUEUE_BYTES (``_chunk_bytes``; a larger chunk is a window of its
-    own): per window its chunks' (group, hits, output views), laid
-    out from byte 0 of the output buffer, and the window's end byte."""
+    most QUEUE_BYTES (``_chunk_bytes``, and on a ``card`` the chunk's
+    ``table_rows`` and, once a window, a row slice of ``card_tables`` and
+    the coefficient matrices of the groups' read classes as they stand
+    on the card, ``_coef_bytes``; a larger chunk is a window of its own): per window its chunks' (group, hits, output
+    views), laid out from byte 0 of the output buffer, and the window's
+    end byte."""
     windows, held = [], 0
+    fixed = TABLE_SLICE_BYTES + sum(_coef_bytes(c) for c in {
+        tuple(g[3] or ()) for g in groups}) if card else 0
     for g, (profs, seqs, kpad, codes) in enumerate(groups):
-        for H, L, K, ntab in chunk_shapes(profs, seqs, kpad, codes):
+        for lo, (H, L, K, ntab) in zip(
+                range(0, len(profs), TRACE_BATCH),
+                chunk_shapes(profs, seqs, kpad, codes)):
             size = _chunk_bytes(H, L, K, ntab)
+            if card:
+                size += _rows_bytes(profs[lo : lo + TRACE_BATCH], codes)
             if not windows or held + size > QUEUE_BYTES:
                 windows.append([[], 0])
-                held = 0
+                held = fixed
             views, windows[-1][1] = _layout(L, H, K, windows[-1][1])
             windows[-1][0].append((g, H, views))
             held += size
@@ -594,54 +838,67 @@ def trace_scan(groups: list, multi_hits: bool = True,
                device="cuda") -> list[list[vr.ViterbiResult]]:
     """Pass 2 of a scan: for each group of ``groups``, (profiles, encoded
     reads, kpad, codes), the traceback of its (profile, read) hits, one
-    DP per chunk of ``chunks`` and a walk per hit, with one host wait per
-    window of QUEUE_BYTES (``_windows``): one for a scan whose chunks fit
-    in it.
+    DP per chunk of ``chunk_reads`` and a walk per hit, with one host
+    wait per window of QUEUE_BYTES (``_windows``): one for a scan whose
+    chunks fit in it.
 
     Every chunk of a window writes into its slice of one output buffer,
-    laid out before the first block is built and reused by the next
-    window.  On a card each chunk is uploaded on the current stream,
-    whose copies wait for nothing but that stream's own uploads, and
-    launched on a stream of its own (STREAMS, reused in turn), so the
-    launches run side by side and the host builds the next chunk's block
-    while the queued kernels run; one device-to-host copy after the
-    window's last launch (``_to_host``) is its only wait for the
-    kernels.  On the CPU each chunk is ``trace_dp``'s, written into the
-    same layout.  The window's walks follow, hit by hit."""
+    laid out before the first chunk is packed and reused by the next
+    window.  On a card each chunk is packed by ``pack_chunk``: its
+    inputs are uploaded on the current stream, whose copies wait for
+    nothing but that stream's own uploads, and its fragment tables are
+    computed on the card on the tables' stream (``_tables_stream``), in
+    chunk order; the chunk is launched on a stream of its own (STREAMS,
+    reused in turn) once its uploads and tables are done, so the
+    launches run side by side and the host packs the next chunk while
+    the queued work runs; one device-to-host copy after the window's
+    last launch (``_to_host``) is its only wait for the card.  On the
+    CPU each chunk is ``trace_dp``'s on the host block of ``chunks``,
+    written into the same layout.  The window's walks follow, hit by
+    hit."""
     dev = resolve_device(device)
     card = _on_card(dev)
     if card:
         from deciphon_tpu_torch.ops import _build
 
         _build.library()  # a missing compiler raises before any upload
-    windows = _windows(groups)
+    windows = _windows(groups, card)
     results: list[list[vr.ViterbiResult]] = [[] for _ in groups]
     if not windows:
         return results
     buf = torch.empty(max(end for _, end in windows), dtype=torch.uint8,
                       device=dev)
-    streams = []
+    streams, tables = [], None
     if dev.type == "cuda":
         main = torch.cuda.current_stream(dev)
         streams = [torch.cuda.Stream(dev) for _ in range(
             min(STREAMS, max(len(w) for w, _ in windows)))]
+        tables = _tables_stream(dev)
     chunk_iter = (c for profs, seqs, kpad, codes in groups
-                  for c in chunks(profs, seqs, kpad, codes))
+                  for c in (chunk_reads(profs, seqs, codes) if card
+                            else chunks(profs, seqs, kpad, codes)))
     j = 0
     for window, end in windows:
         walks = []  # (read lengths, K) per chunk
         for g, H, views in window:
-            with trace.span("pass2.pack"):  # the host block build
-                block, eidx, lens = next(chunk_iter)
-                pk = card and pack_trace(block, eidx, lens, multi_hits,
-                                         hmmer3_compat, dev)
-            if views["bpM"][2] != (int(lens.max()), *block.fm.shape[:2]):
+            with trace.span("pass2.pack"):  # the chunk's block or pack
+                if card:
+                    chunk_p, eidx, lens = next(chunk_iter)
+                    pk = pack_chunk(chunk_p, eidx, lens, groups[g][2],
+                                    groups[g][3], multi_hits, hmmer3_compat,
+                                    dev, tables)
+                    K = pk.fmT.shape[2]
+                else:
+                    block, eidx, lens = next(chunk_iter)
+                    K = block.fm.shape[1]
+            if views["bpM"][2] != (int(lens.max()), len(lens), K):
                 raise AssertionError(f"chunk {j}: layout {views['bpM'][2]}")
             if card:
                 ctx = contextlib.nullcontext()
                 if streams:
                     s = streams[j % len(streams)]
                     s.wait_stream(main)  # the uploads, and the last copy
+                    s.wait_stream(tables)  # the chunk's tables
                     for x in pk[:5]:  # freed only after the launch on s
                         x.record_stream(s)
                     ctx = torch.cuda.stream(s)
@@ -654,7 +911,7 @@ def trace_scan(groups: list, multi_hits: bool = True,
                 for k, (off, dt, shape) in views.items():
                     b = np.ascontiguousarray(ys[k], dtype=dt).view(np.uint8)
                     raw[off:off + b.size] = b.ravel()
-            walks.append((lens, block.fm.shape[1]))
+            walks.append((lens, K))
             j += 1
         with trace.span("pass2.wait"):
             raw = _to_host(buf, end, streams)  # the window's one wait

@@ -9,7 +9,7 @@ version, on the CPU.
   a profile of identical flat nodes that forces ties, chunks of 1, 3
   and 5 hits (a row each, none a copy) and an empty read beside
   others.
-- The kernel's packing (``pack_trace``, the plan table ``trace_plan``
+- The kernel's packing (``pack_chunk``, the plan table ``trace_plan``
   for every width, the output buffer's layout) is checked without a
   card, and ``kernel_mirror``, a numpy copy of csrc/traceback.cu's
   order of operations (ring slots with node k - 1 in column k, the
@@ -120,21 +120,36 @@ CASES = [("flags", mh, h3) for mh, h3 in FLAGS] + [
 ]
 
 
-def chunk(case):
-    """(H, port block, JAX block, eidx, lens) of the case's one chunk."""
+def encoded(case):
+    """(JAX profiles, port profiles, encoded reads, codes, kpad) of one
+    case: kpad three nodes past the widest core (padding nodes too)."""
     jps, pps, reads, codes = hits(case)
     encs = []
     for r in reads:
         enc, got = encode_extended(r) if r else (np.zeros(0, np.int8), ())
         assert got in (codes, ())
         encs.append(enc)
-    kpad = max(p.core_size for p in pps) + 3  # padding nodes too
+    return jps, pps, encs, codes, max(p.core_size for p in pps) + 3
+
+
+def chunk(case):
+    """(H, port block, JAX block, eidx, lens) of the case's one chunk."""
+    jps, pps, encs, codes, kpad = encoded(case)
     ((block, eidx, lens),) = ptr.chunks(pps, encs, kpad, codes or None)
     jblock = vj.build_profile_block(jps, kpad=kpad, codes=codes or None)
     for name in block._fields:
         np.testing.assert_array_equal(getattr(block, name),
                                       getattr(jblock, name), err_msg=name)
     return len(pps), block, jblock, eidx, lens
+
+
+def packed(case, multi_hits=True, hmmer3_compat=False):
+    """The case's one chunk in the kernel's layout on the CPU
+    (``pack_chunk``, the card route's tables)."""
+    _, pps, encs, codes, kpad = encoded(case)
+    ((chunk_p, eidx, lens),) = ptr.chunk_reads(pps, encs, codes or None)
+    return ptr.pack_chunk(chunk_p, eidx, lens, kpad, codes, multi_hits,
+                          hmmer3_compat, "cpu")
 
 
 def jax_specials(seq_len, multi_hits, hmmer3_compat, dtype=torch.float32):
@@ -207,7 +222,7 @@ def mirror_plan(kind: str, npt: int, K: int, C: int = 2) -> ptr.TracePlan:
 
 def kernel_mirror(pk: ptr.TracePack, plan: ptr.TracePlan) -> dict:
     """numpy copy of csrc/traceback.cu's order of operations on a
-    ``pack_trace`` chunk (CPU tensors) under ``plan``: ys as ``trace_dp``
+    ``pack_chunk`` chunk (CPU tensors) under ``plan``: ys as ``trace_dp``
     returns them.  The nodes split over threads (npt each), warps and
     the CTAs of a cluster as the plan splits them: ring slots by
     position % 5 with node k - 1 in column k, the candidate lists as the
@@ -423,7 +438,7 @@ def test_kernel_mirror_equals_trace_dp(case, mh, h3):
     "wide" case gives several warps and both CTAs)."""
     _, block, _, eidx, lens = chunk(case)
     _, ys = ptr.trace_dp(block, eidx, lens, mh, h3)
-    pk = ptr.pack_trace(block, eidx, lens, mh, h3, "cpu")
+    pk = packed(case, mh, h3)
     K = pk.fmT.shape[2]
     plans = mirror_plans(K)
     if case == "wide":
@@ -437,10 +452,11 @@ def test_kernel_mirror_equals_trace_dp(case, mh, h3):
 
 
 def test_pack_trace_layout():
-    """Transposed tables, stacked planes, the D-chain's precomputed terms
-    (the same torch calls as trace_dp's), dtypes and shapes."""
+    """Transposed tables (the host block's), stacked planes, the
+    D-chain's precomputed terms (the same torch calls as trace_dp's),
+    dtypes and shapes."""
     _, block, _, eidx, lens = chunk("flags")
-    pk = ptr.pack_trace(block, eidx, lens, True, False, "cpu")
+    pk = packed("flags")
     H, K, ntab = block.fm.shape
     Lmax = int(lens.max())
     assert pk.fmT.shape == (H, ntab, K) and pk.fmT.is_contiguous()
@@ -599,8 +615,7 @@ def test_cuda_build_failure_raises(monkeypatch):
 def test_launch_refuses_a_cpu_chunk():
     """The kernel's wrapper takes only a chunk on a card; the CPU's DP is
     trace_dp."""
-    _, block, _, eidx, lens = chunk("flags")
-    pk = ptr.pack_trace(block, eidx, lens, True, False, "cpu")
+    pk = packed("flags")
     with pytest.raises(ValueError, match="runs on a card"):
         ptr.launch_trace(pk)
 
@@ -750,12 +765,13 @@ def test_chunk_bytes_count_the_packed_chunk(monkeypatch):
         encs = [encode_extended(r)[0] for r in reads]
         codes = codes or None
         shapes = list(ptr.chunk_shapes(pps, encs, None, codes))
-        built = list(ptr.chunks(pps, encs, None, codes))
+        built = list(ptr.chunk_reads(pps, encs, codes))
         assert [len(lens) for _, _, lens in built] == [
             min(2, len(pps) - lo) for lo in range(0, len(pps), 2)]
-        for (H, L, K, ntab), (block, eidx, lens) in zip(shapes, built,
-                                                        strict=True):
-            pk = ptr.pack_trace(block, eidx, lens, True, False, "cpu")
+        for (H, L, K, ntab), (chunk_p, eidx, lens) in zip(shapes, built,
+                                                          strict=True):
+            pk = ptr.pack_chunk(chunk_p, eidx, lens, None, codes, True,
+                                False, "cpu")
             assert (H, ntab, K) == tuple(pk.fmT.shape)
             assert L == int(lens.max())
             held = sum(x.numel() * x.element_size() for x in pk[:5])
